@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases (any failure ends the run with a non-zero exit and no result line):
+
+  1. device: the card's name and power limit; build the CUDA kernels from
+     ``src/repro_torch/kernels/csrc`` with nvcc.
+  2. each kernel against its plain PyTorch version on the card, at the
+     shapes the main path gives it, with the stated tolerance; then its
+     time (CUDA events, median), its bound, the plain version's time and
+     one library call's time where one computes the same function.
+  3. the main path at full width: ``Mixture.partial_fit`` /
+     ``score_samples`` / ``predict_proba`` over an mnist-subset-shaped
+     stream (N = 1000, 784 features + 10 one-hot labels, D = 794) with
+     K = 64 and ``backend="pallas"`` on the scan path; the learner held
+     against its plain-torch backend on a 128-point prefix.
+  4. the resident path: a StreamRuntime at K = 16, D = 32 whose "auto" path
+     must resolve to the resident kernel, held against the plain resident
+     loop replayed on the card.
+  5. one JSON line with every kernel, the card line, and the result line.
+
+Imports neither JAX nor the reference package.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+
+# NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
+# the tensor cores (the kernels use no tensor cores); both at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOP_PER_S = 67e12
+EPS32 = 2.0 ** -24
+
+
+def log(*a) -> None:
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True, timeout=60).stdout.strip()
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median milliseconds of one call of ``fn`` on the card (CUDA events
+    around each call)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time the card could take: bytes over the memory rate or
+    float32 operations over the peak rate, whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def check_close(name: str, err: float, tol: float) -> None:
+    log(f"  {name}: max_abs_err {err:.3e} (tolerance {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: error {err} exceeds {tol}")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phase 2: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def phase_kernels(dev):
+    from repro_torch.kernels import _build, figmn_stream, figmn_update, ref
+    from repro_torch.core import figmn
+    from repro_torch.core.types import FIGMNConfig, gate_threshold
+
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(0)
+    k, d = 64, 794
+    lam = torch.randn((k, d, d), generator=g, device=dev)
+    a = torch.randn((k, d), generator=g, device=dev)
+    b = torch.randn((k, d), generator=g, device=dev)
+
+    log(f"matvec2 at K={k} D={d}")
+    # worst-case summation error of any order is D·u·Σ|terms| (γ_D); two
+    # orders differ by at most twice that
+    tol = 2 * d * EPS32 * float(torch.einsum("kde,ke->kd", lam.abs(),
+                                             a.abs()).max())
+    y, _ = figmn_update.matvec2(lam, a)
+    y2, z2 = figmn_update.matvec2(lam, a, b)
+    err = max(max_err(y, ref.matvec_ref(lam, a)),
+              max_err(y2, ref.matvec_ref(lam, a)),
+              max_err(z2, ref.matvec_ref(lam, b)))
+    check_close("matvec2", err, tol)
+    nbytes, flops = 4 * (k * d * d + 2 * k * d), 2 * k * d * d
+    bms, by = bound_ms(nbytes, flops)
+    rows["matvec2"] = dict(
+        name="matvec2", route="cuda",
+        source="src/repro_torch/kernels/csrc/figmn_update.cu",
+        replaces="src/repro/kernels/figmn_update.py:48",
+        max_abs_err=err,
+        ms=time_ms(lambda: figmn_update.matvec2(lam, a), 20),
+        plain_ms=time_ms(lambda: ref.matvec_ref(lam, a), 20),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.bmm(lam, a[:, :, None]), 20))
+
+    log(f"rank2_apply at K={k} D={d}")
+    w = torch.rand((k,), generator=g, device=dev) * 0.5
+    inv1mw, c1, c2 = 1.0 / (1.0 - w), w, 0.5 * w
+    out = figmn_update.rank2_apply(lam, a, None, inv1mw, c1, None)
+    err = max_err(out, ref.rank2_apply_ref(lam, a, None, inv1mw, c1, None))
+    out2 = figmn_update.rank2_apply(lam, a, b, inv1mw, c1, c2)
+    err = max(err, max_err(out2, ref.rank2_apply_ref(lam, a, b, inv1mw, c1,
+                                                     c2)))
+    # same association, no multiply-add contraction: the two round alike
+    check_close("rank2_apply", err, 4 * EPS32 * float(out2.abs().max()))
+    # timed in place, as the main path runs it, with coefficients that keep
+    # Λ bounded over the repeats
+    lam_t = lam.clone()
+    one, small = torch.ones_like(w), 1e-6 * w
+    nbytes, flops = 4 * (2 * k * d * d + k * d + 2 * k), 3 * k * d * d
+    bms, by = bound_ms(nbytes, flops)
+    rows["rank2_apply"] = dict(
+        name="rank2_apply", route="cuda",
+        source="src/repro_torch/kernels/csrc/figmn_update.cu",
+        replaces="src/repro/kernels/figmn_update.py:97",
+        max_abs_err=err,
+        ms=time_ms(lambda: figmn_update.rank2_apply(
+            lam_t, a, None, one, small, None, out=lam_t), 20),
+        plain_ms=time_ms(lambda: ref.rank2_apply_ref(
+            lam_t, a, None, one, small, None), 20),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    del lam, lam_t, out, out2
+
+    kr, dr, n = 16, 32, 256
+    log(f"figmn_stream at K={kr} D={dr} N={n}")
+    if _build.lib().figmn_stream_smem_bytes(kr, dr) \
+            != figmn_stream.smem_bytes(kr, dr):
+        raise AssertionError("smem_bytes disagrees with the kernel's layout")
+    x = torch.from_numpy(resident_stream(n + 512, dr, seed=1)).to(dev)
+    cfg = FIGMNConfig(kmax=kr, dim=dr, beta=0.1, delta=1.0, vmin=1e9,
+                      spmin=0.0, update_mode="exact",
+                      sigma_ini=figmn.sigma_from_data(x, 1.0))
+    st = figmn.fit(cfg, figmn.init_state(cfg, dev), x[:512])
+    xs = x[512:].contiguous()
+    args = (xs, st.mu, st.lam, st.logdet, st.sp, st.active.to(torch.int32),
+            gate_threshold(cfg), dr)
+    got = figmn_stream.figmn_stream(*args)
+    want = ref.figmn_stream_ref(*args)
+    if int(got[4][0]) != int(want[4][0]):
+        raise AssertionError(f"accepts {int(got[4][0])} != "
+                             f"{int(want[4][0])}")
+    # tests/test_figmn_stream_kernel.py's tolerances: μ 2e-4, Λ 1e-3 (and
+    # 1e-3 relative), logdet and sp 1e-3, over active slots
+    m = st.active
+    errs = [max_err(got[0][m], want[0][m]), max_err(got[1][m], want[1][m]),
+            max_err(got[2][m], want[2][m]), max_err(got[3][m], want[3][m])]
+    check_close("figmn_stream mu", errs[0], 2e-4)
+    check_close("figmn_stream lam", errs[1],
+                1e-3 + 1e-3 * float(want[1][m].abs().max()))
+    check_close("figmn_stream logdet", errs[2], 1e-3)
+    check_close("figmn_stream sp", errs[3], 1e-3)
+    nacc = int(got[4][0])
+    # operations this run's data needs: the gate matvec and d² for every
+    # point, the rank-one update and μ step for accepted points only
+    flops = n * (2 * kr * dr * dr + 2 * kr * dr) \
+        + nacc * (4 * kr * dr * dr + 2 * kr * dr)
+    nbytes = 4 * (n * dr + 2 * (kr * dr * dr + kr * dr + 2 * kr) + kr + 1)
+    bms, by = bound_ms(nbytes, flops)
+    rows["figmn_stream"] = dict(
+        name="figmn_stream", route="cuda",
+        source="src/repro_torch/kernels/csrc/figmn_stream.cu",
+        replaces="src/repro/kernels/figmn_stream.py:98",
+        max_abs_err=max(errs),
+        ms=time_ms(lambda: figmn_stream.figmn_stream(*args), 10),
+        plain_ms=time_ms(lambda: ref.figmn_stream_ref(*args), 3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    for r in rows.values():
+        log(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
+            f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
+            f"{r['library_ms']})")
+    return rows
+
+
+def resident_stream(n: int, d: int, seed: int, modes: int = 4) -> np.ndarray:
+    """benchmarks/figmn_runtime.py's stream: seeded clusters."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 6.0, (modes, d))
+    x = centers[rng.integers(0, modes, n)] + rng.normal(0, 1.0, (n, d))
+    return x.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path at full width
+# ---------------------------------------------------------------------------
+
+def phase_full_width(dev):
+    import dataclasses
+    from repro_torch.api import Mixture, MixtureSpec
+    from repro_torch.core import figmn
+    from repro_torch.core.types import FIGMNConfig
+    from repro_torch.data.gmm_streams import gaussian_classes
+    from repro_torch.kernels import _build
+    from repro_torch.stream import RuntimeConfig
+
+    n, feats, classes = 1000, 784, 10                # Table 1 mnist-subset
+    x, y = gaussian_classes(n, feats, classes, seed=0)
+    joint = np.concatenate([x, np.eye(classes, dtype=np.float32)[y]], 1)
+    dim = feats + classes
+    targets = list(range(feats, dim))
+    sigma = figmn.sigma_from_data(torch.from_numpy(joint).to(dev), 1.0)
+    cfg = FIGMNConfig(kmax=64, dim=dim, beta=0.001, delta=1.0,
+                      update_mode="exact", backend="pallas", sigma_ini=sigma)
+    log(f"full width: N={n} D={dim} K={cfg.kmax} chunk=256 path=scan "
+        f"backend=pallas")
+    spec = MixtureSpec(model=cfg, runtime=RuntimeConfig(
+        chunk=256, path="scan", device=str(dev)))
+    # warm-up outside the counted run: loads the kernels and the library
+    # handles (cuBLAS, cuSOLVER) a long-running service has loaded
+    warm = Mixture(spec).partial_fit(joint[:32])
+    warm.score_samples(joint[:32])
+    warm.predict_proba(x[:32], targets)
+    mix = Mixture(spec)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    _build.reset_launches()
+    _, fit_s = timed(lambda: mix.partial_fit(joint))
+    score, score_s = timed(lambda: mix.score_samples(joint))
+    proba, predict_s = timed(lambda: mix.predict_proba(x, targets))
+    launches = dict(_build.LAUNCHES)
+    # repeats: score is stateless; predict_proba reuses the epoch's cached
+    # factor stage, as a service's repeated reads do
+    score_rep = statistics.median(
+        timed(lambda: mix.score_samples(joint))[1] for _ in range(3))
+    predict_rep = statistics.median(
+        timed(lambda: mix.predict_proba(x, targets))[1] for _ in range(3))
+
+    acc = float((proba.argmax(1).cpu().numpy() == y).mean())
+    log(f"  active K {mix.n_active}, created {int(mix.state.n_created)}, "
+        f"{n / fit_s:.1f} points/s ({fit_s:.3f} s), score {score_s * 1e3:.2f}"
+        f" ms (repeat {score_rep * 1e3:.2f}), predict_proba "
+        f"{predict_s * 1e3:.2f} ms (repeat, factors cached "
+        f"{predict_rep * 1e3:.2f}), label accuracy {acc:.4f}")
+    log(f"  launches on the main path: {launches}")
+    if tuple(score.shape) != (n,) or not bool(torch.isfinite(score).all()):
+        raise AssertionError("score_samples: not N finite values")
+    if tuple(proba.shape) != (n, classes) \
+            or not bool(torch.isfinite(proba).all()):
+        raise AssertionError("predict_proba: not (N, 10) finite values")
+    if launches["matvec2"] == 0 or launches["rank2_apply"] == 0:
+        raise AssertionError(f"the main path missed its kernels: {launches}")
+
+    # the kernel backend against the plain-torch backend on a prefix
+    m = 128
+    xs = torch.from_numpy(joint[:m]).to(dev)
+    s_k = figmn.fit(cfg, figmn.init_state(cfg, dev), xs)
+    s_p = figmn.fit(dataclasses.replace(cfg, backend="jnp"),
+                    figmn.init_state(cfg, dev), xs)
+    if int(s_k.n_created) != int(s_p.n_created):
+        raise AssertionError("backends created different components")
+    act = s_p.active
+    check_close("full-width lam (kernels vs plain, 128 points)",
+                max_err(s_k.lam[act], s_p.lam[act]),
+                1e-3 * float(s_p.lam[act].abs().max()))
+    check_close("full-width logdet", max_err(s_k.logdet[act],
+                                             s_p.logdet[act]),
+                1e-4 * float(s_p.logdet[act].abs().max()))
+    check_close("full-width mu", max_err(s_k.mu[act], s_p.mu[act]),
+                1e-4 * float(s_p.mu[act].abs().max()))
+    profile_out = phase_profile(dev, cfg, torch.from_numpy(joint).to(dev))
+    return launches, dict(profile=profile_out,
+                          points_per_s=n / fit_s, score_ms=score_s * 1e3,
+                          score_repeat_ms=score_rep * 1e3,
+                          predict_ms=predict_s * 1e3,
+                          predict_repeat_ms=predict_rep * 1e3,
+                          accuracy=acc, active_k=mix.n_active,
+                          created=int(mix.state.n_created))
+
+
+def phase_profile(dev, cfg, xs):
+    """Where the time goes on the full-width scan path: 64 learning steps
+    under torch.profiler; device time by kernel and the device's busy
+    share of the window's wall time (profiler overhead included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import figmn
+
+    state = figmn.fit(cfg, figmn.init_state(cfg, dev), xs[:64])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = figmn.fit(cfg, state, xs[64:128])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events only: the CPU op rows also carry the device time
+    # of the kernels they launched, and summing both would count it twice
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA]
+    by_name = {ev.key: ev.self_device_time_total for ev in kernels}
+    busy = sum(by_name.values())
+    n_launch = sum(ev.count for ev in kernels)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    out = dict(points=64, wall_us=wall_us, device_busy_us=busy,
+               busy_share=busy / wall_us if busy else None,
+               kernel_launches=n_launch, top_kernels_us=dict(top))
+    log(f"profile (64 full-width steps): wall {wall_us:.0f} us, device busy "
+        f"{busy:.0f} us, {n_launch} kernel launches" if busy
+        else "profile: device time not measured")
+    for k, v in top:
+        log(f"  {v:10.1f} us  {k[:90]}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the resident path
+# ---------------------------------------------------------------------------
+
+def phase_resident(dev):
+    from repro_torch.core import figmn
+    from repro_torch.core.types import FIGMNConfig, FIGMNState, gate_threshold
+    from repro_torch.kernels import _build, ref
+    from repro_torch.stream import RuntimeConfig, StreamRuntime
+
+    n, d, k, chunk = 2048, 32, 16, 256
+    x = resident_stream(n, d, seed=0)
+    cfg = FIGMNConfig(kmax=k, dim=d, beta=0.1, delta=1.0, vmin=50.0,
+                      spmin=1.0, update_mode="exact",
+                      sigma_ini=figmn.sigma_from_data(
+                          torch.from_numpy(x), 1.0).numpy())
+    rt = StreamRuntime(cfg, RuntimeConfig(chunk=chunk, path="auto",
+                                          device=str(dev)))
+    log(f"resident: N={n} D={d} K={k} chunk={chunk}: path {rt.path!r}")
+    if rt.path != "vmem":
+        raise AssertionError(f"'auto' resolved to {rt.path!r}, not 'vmem'")
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = rt.ingest(x)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    vmem_chunk_ms = statistics.median(
+        m.latency_s * 1e3 for m in rt.telemetry.history if m.path == "vmem")
+    log(f"  {n / ingest_s:.1f} points/s, a resident chunk {vmem_chunk_ms:.3f}"
+        f" ms, active K {summary['active_k']}, "
+        f"accepted {summary['accepted']}, paths "
+        f"{[m.path for m in rt.telemetry.history]}, launches {launches}")
+    if launches["figmn_stream"] == 0:
+        raise AssertionError("the resident path missed its kernel")
+
+    # replay the runtime's chunks with the plain resident loop on the card
+    st = figmn.init_state(cfg, dev)
+    thresh, accepted = gate_threshold(cfg), 0
+    for a in range(0, n, chunk):
+        xc = torch.from_numpy(x[a:a + chunk]).to(dev)
+        if int(st.n_active) == 0:
+            st = figmn.fit(cfg, st, xc, do_prune=cfg.spmin > 0)
+            continue
+        mu, lam, logdet, sp, nacc = ref.figmn_stream_ref(
+            xc, st.mu, st.lam, st.logdet, st.sp, st.active.to(torch.int32),
+            thresh, d)
+        accepted += int(nacc[0])
+        st = FIGMNState(mu=mu, lam=lam, logdet=logdet, sp=sp,
+                        v=st.v + xc.shape[0] * st.active.to(cfg.dtype),
+                        active=st.active, n_created=st.n_created)
+    if accepted != summary["accepted"]:
+        raise AssertionError(f"accepts {summary['accepted']} != {accepted}")
+    m = st.active
+    if not torch.equal(m, rt.state.active):
+        raise AssertionError("active slots differ from the plain replay")
+    check_close("resident mu", max_err(rt.state.mu[m], st.mu[m]), 2e-4)
+    check_close("resident lam", max_err(rt.state.lam[m], st.lam[m]),
+                1e-3 + 1e-3 * float(st.lam[m].abs().max()))
+    check_close("resident sp", max_err(rt.state.sp[m], st.sp[m]), 1e-3)
+    return launches, dict(points_per_s=n / ingest_s,
+                          vmem_chunk_ms=vmem_chunk_ms)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False    # full float32 products
+    torch.backends.cudnn.allow_tf32 = False
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.lib()
+    build_s = time.perf_counter() - t0
+    log(f"kernels built and loaded in {build_s:.2f} s "
+        f"(nvcc {_build.build_seconds} s)\n{_build.build_log}")
+
+    rows = phase_kernels(dev)
+    main_launches, full = phase_full_width(dev)
+    res_launches, res = phase_resident(dev)
+    rows["matvec2"]["launches"] = main_launches["matvec2"]
+    rows["rank2_apply"]["launches"] = main_launches["rank2_apply"]
+    rows["figmn_stream"]["launches"] = res_launches["figmn_stream"]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k_: r[k_] for k_ in keys}
+                                  for r in rows.values()],
+                      "full_width": full, "resident": res,
+                      "build_s": build_s}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,24 @@
+"""repro_torch — the Fast Incremental Gaussian Mixture Model (Pinto & Engel,
+2015) in PyTorch, with hand-written CUDA kernels for an NVIDIA H100.
+
+A port of the JAX package ``repro``, which stays the reference; the layout
+and names mirror it.  This package imports torch, numpy and the standard
+library only.
+
+  core      the precision-form learner (types, figmn) and eq. 27 inference
+  kernels   CUDA kernels (csrc/*.cu, built with nvcc at first use and bound
+            with ctypes) + their plain PyTorch versions (ref.py)
+  stream    StreamRuntime: chunked ingestion (scan/vmem), telemetry
+  api       Mixture / MixtureSpec on the "runtime" tier
+  interop   configs and states to and from numpy
+  data      deterministic synthetic streams
+
+Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
+device and no card they raise.  Float32 products run in full float32: TF32
+is switched off here for matrix products and convolutions, since it keeps
+about three decimal digits and alone breaks parity with the reference.
+"""
+import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

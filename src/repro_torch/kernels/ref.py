@@ -1,0 +1,126 @@
+"""Plain PyTorch versions of every kernel in this package.
+
+Each function is the mathematical definition the corresponding CUDA kernel
+must reproduce: the CPU tests hold these against the JAX reference
+(``repro.kernels.ref`` and the Pallas kernels in interpret mode), and
+``chip_smoke.py`` holds each CUDA kernel against its plain version on the
+card.  The wrappers take these versions only for tensors on the CPU.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+Tensor = torch.Tensor
+
+_LOG_2PI = 1.8378770664093453
+
+
+def mahalanobis_ref(diff: Tensor, lam: Tensor) -> Tensor:
+    """d²_k = diff_kᵀ Λ_k diff_k  (eq. 22 batched over K).
+
+    diff: (K, D), lam: (K, D, D) → (K,)
+    """
+    return torch.einsum("kd,kde,ke->k", diff, lam, diff)
+
+
+def matvec_ref(lam: Tensor, v: Tensor) -> Tensor:
+    """y_k = Λ_k v_k for every slot.  lam: (K, D, D), v: (K, D) → (K, D)."""
+    return torch.einsum("kde,ke->kd", lam, v)
+
+
+def figmn_matvecs_ref(lam: Tensor, e_star: Tensor,
+                      dmu: Tensor) -> Tuple[Tensor, Tensor]:
+    """The two matvecs of the rank-2 precision update: y = Λe*, z = ΛΔμ."""
+    return matvec_ref(lam, e_star), matvec_ref(lam, dmu)
+
+
+def rank2_apply_ref(lam: Tensor, y: Tensor, yb: Optional[Tensor],
+                    inv1mw: Tensor, c1: Tensor,
+                    c2: Optional[Tensor]) -> Tensor:
+    """Λ' = Λ·inv1mw − c1·yyᵀ + c2·yb ybᵀ, in the TPU kernel's association:
+    ((Λ·inv1mw) − (c1·y_i)·y_j) + (c2·yb_i)·yb_j.
+
+    lam: (K, D, D); y, yb: (K, D); inv1mw, c1, c2: (K,).  ``yb``/``c2``
+    None drops the second term (the reference feeds zeros there, which
+    adds exactly 0).
+    """
+    out = lam * inv1mw[:, None, None] \
+        - (c1[:, None] * y)[:, :, None] * y[:, None, :]
+    if yb is not None:
+        out = out + (c2[:, None] * yb)[:, :, None] * yb[:, None, :]
+    return out
+
+
+def precision_rank2_update_ref(lam: Tensor, e_star: Tensor, dmu: Tensor,
+                               w: Tensor) -> Tuple[Tensor, Tensor, Tensor]:
+    """End-to-end oracle for the paper's eqs. 20–21 (precision part only).
+
+    Returns (Λ(t), s, t) where s = e*ᵀΛe* and t = ΔμᵀΛ̄Δμ feed the
+    determinant-lemma updates (eqs. 25–26).
+    """
+    one_m_w = 1.0 - w
+    y, z = figmn_matvecs_ref(lam, e_star, dmu)
+    s = torch.einsum("kd,kd->k", e_star, y)
+    denom1 = 1.0 + w * s / one_m_w
+    c1 = w / (one_m_w * one_m_w * denom1)
+    u = torch.einsum("kd,kd->k", y, dmu)                 # yᵀΔμ
+    yb = z / one_m_w[:, None] - (c1 * u)[:, None] * y    # Λ̄Δμ without Λ̄
+    t = torch.einsum("kd,kd->k", dmu, z) / one_m_w - c1 * u * u
+    c2 = 1.0 / (1.0 - t)
+    lam_new = rank2_apply_ref(lam, y, yb, 1.0 / one_m_w, c1, c2)
+    return lam_new, s, t
+
+
+def precision_rank1_update_exact_ref(lam: Tensor, e: Tensor,
+                                     w: Tensor) -> Tuple[Tensor, Tensor]:
+    """Oracle for the beyond-paper exact mode: Λ' = (Λ − c·yyᵀ)/(1−ω)."""
+    one_m_w = 1.0 - w
+    y = matvec_ref(lam, e)
+    s = torch.einsum("kd,kd->k", e, y)
+    coef = w / (1.0 + w * s)
+    lam_new = (lam - coef[:, None, None] * torch.einsum("kd,ke->kde", y, y)) \
+        / one_m_w[:, None, None]
+    return lam_new, s
+
+
+def figmn_stream_ref(xs: Tensor, mu: Tensor, lam: Tensor, logdet: Tensor,
+                     sp: Tensor, active: Tensor, thresh: float, dim: int
+                     ) -> Tuple[Tensor, Tensor, Tensor, Tensor, Tensor]:
+    """The resident chunk loop: every point of ``xs`` (N, D) through the
+    gate, the kernel's own masked posterior and the exact-mode fused
+    rank-one update, in the TPU kernel's order of operations
+    (``repro.kernels.figmn_stream._stream_kernel``).
+
+    Gate-failing points are no-ops (creation is the caller's business).
+    Returns new (mu, lam, logdet, sp) and the accept count (1,) int32.
+    """
+    active = active.bool()
+    mu, lam, logdet, sp = mu.clone(), lam.clone(), logdet.clone(), sp.clone()
+    nacc = torch.zeros((1,), dtype=torch.int32, device=xs.device)
+    log_norm = dim * _LOG_2PI
+    for t in range(xs.shape[0]):
+        diff = xs[t][None, :] - mu                              # (K, D)
+        y = matvec_ref(lam, diff)                               # (K, D)
+        d2 = (diff * y).sum(dim=1)                              # (K,)
+        accept = torch.any(active & (d2 < thresh))
+        logp = -0.5 * (log_norm + logdet + d2)
+        logw = torch.where(active, logp + torch.log(sp.clamp_min(1e-30)),
+                           torch.full_like(logp, -1e30))
+        p_un = torch.where(active, torch.exp(logw - logw.max()),
+                           torch.zeros_like(logw))
+        post = p_un / p_un.sum().clamp_min(1e-30)
+        post = torch.where(accept, post, torch.zeros_like(post))
+        sp_new = sp + post
+        w = post / sp_new.clamp_min(1e-30)
+        one_m_w = 1.0 - w
+        beta = w / (1.0 + w * d2)
+        dlogdet = dim * torch.log(one_m_w) + torch.log1p(w * d2)
+        mu = mu + w[:, None] * diff
+        lam = (lam - (beta[:, None] * y)[:, None, :] * y[:, :, None]) \
+            / one_m_w[:, None, None]
+        logdet = logdet + dlogdet
+        sp = sp_new
+        nacc += accept.to(torch.int32)
+    return mu, lam, logdet, sp, nacc

@@ -1,0 +1,217 @@
+"""Micro-batch ingestion: chunking, double-buffered H2D, path dispatch.
+
+Counterpart of ``repro.stream.ingest``.  The learner is strictly sequential
+in the data, so the only freedoms are when host→device copies happen and
+which body consumes a chunk:
+
+  "scan" — ``core.figmn.fit`` over the chunk (creation and pruning inline,
+           so chunked ingestion equals one ``fit`` over the whole stream);
+  "vmem" — the resident CUDA kernel ``kernels.figmn_stream``: the whole
+           (K, D, D) working set stays in one block's shared memory for the
+           chunk.  Creation events are no-ops inside it.  (The name is the
+           reference's; on the card the resident memory is shared memory.)
+
+The top-C shortlist body ("sparse") waits for a later slice.
+"""
+from __future__ import annotations
+
+from typing import Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import figmn
+from repro_torch.core.types import (FIGMNConfig, FIGMNState, Tensor,
+                                    gate_threshold, resolve_device)
+from repro_torch.kernels import _build, figmn_stream
+
+PATHS = ("auto", "scan", "vmem")
+
+
+def _resident_fits(cfg: FIGMNConfig, device: torch.device,
+                   smem_limit: Optional[int]) -> Tuple[bool, int, int]:
+    need = figmn_stream.smem_bytes(cfg.kmax, cfg.dim)
+    limit = smem_limit if smem_limit is not None \
+        else _build.smem_optin(device)
+    return need <= limit, need, limit
+
+
+def select_path(cfg: FIGMNConfig, *, requested: str = "auto", device=None,
+                smem_limit: Optional[int] = None) -> str:
+    """Choose the per-chunk path ("scan" | "vmem").
+
+    On a CUDA device "auto" picks the resident kernel when the update mode
+    is the PSD-safe "exact" one (the kernel's only mode) and its working
+    set (``figmn_stream.smem_bytes``: K·D²·4 bytes plus the small state)
+    fits the per-block opt-in shared memory queried from the device
+    (``smem_limit`` overrides the query); elsewhere "scan".  A forced
+    "vmem" that cannot run raises instead of falling back.  On the CPU a
+    forced "vmem" runs the plain resident loop.
+    """
+    if requested == "sparse" or (requested == "auto"
+                                 and cfg.shortlist_c > 0):
+        raise NotImplementedError(
+            "the top-C shortlist path is not ported yet")
+    if requested not in PATHS:
+        raise ValueError(f"unknown path {requested!r}")
+    device = resolve_device(device)
+    if requested == "scan":
+        return "scan"
+    if requested == "vmem":
+        if cfg.update_mode != "exact":
+            raise ValueError("path 'vmem' runs the exact update mode only")
+        if device.type == "cuda":
+            fits, need, limit = _resident_fits(cfg, device, smem_limit)
+            if not fits:
+                raise ValueError(
+                    f"path 'vmem' needs {need} bytes of shared memory, "
+                    f"{device} gives a block {limit}")
+        return "vmem"
+    if (device.type == "cuda" and cfg.update_mode == "exact"
+            and _resident_fits(cfg, device, smem_limit)[0]):
+        return "vmem"
+    return "scan"
+
+
+NONFINITE_POLICIES = ("drop", "reject", "raise")
+
+
+class NonFiniteChunkError(ValueError):
+    """A chunk carried NaN/Inf rows under ``on_nonfinite="raise"``."""
+
+
+def finite_guard(xc_host: np.ndarray, policy: str = "drop"
+                 ) -> Tuple[np.ndarray, int]:
+    """Quarantine non-finite rows BEFORE they can touch Λ.
+
+      "drop"   keep only the finite rows (the state then equals that of a
+               stream that never contained the poisoned rows),
+      "reject" quarantine the WHOLE chunk,
+      "raise"  raise NonFiniteChunkError.
+
+    Returns ``(kept_rows, n_quarantined)``.  The all-finite fast path
+    returns the input array itself, so the runtime keeps using the device
+    copy already in flight.
+    """
+    if policy not in NONFINITE_POLICIES:
+        raise ValueError(
+            f"on_nonfinite must be one of {NONFINITE_POLICIES}")
+    finite = np.isfinite(xc_host).all(axis=1)
+    if finite.all():
+        return xc_host, 0
+    if policy == "raise":
+        bad = int((~finite).sum())
+        raise NonFiniteChunkError(
+            f"{bad}/{xc_host.shape[0]} non-finite rows in chunk "
+            f"(on_nonfinite='raise')")
+    if policy == "reject":
+        return xc_host[:0], int(xc_host.shape[0])
+    return xc_host[finite], int((~finite).sum())
+
+
+class DoubleBufferedLoader:
+    """Chunked host→device feed with one chunk of copy lookahead.
+
+    On a CUDA device each chunk is staged in one of two pinned host
+    buffers and copied with ``non_blocking=True`` on a side stream, issued
+    one chunk ahead of the consumer; the consumer's stream waits on the
+    copy's event before it touches the chunk.  A staging buffer is refilled
+    only after the copy that last read it has completed.
+    """
+
+    def __init__(self, xs, chunk: int, device, dtype=torch.float32):
+        self._np = np.asarray(xs)
+        if self._np.ndim != 2:
+            raise ValueError(f"expected (N, D) stream, got {self._np.shape}")
+        self.chunk = int(chunk)
+        self.device = resolve_device(device)
+        self.dtype = dtype
+
+    def __len__(self) -> int:
+        return -(-self._np.shape[0] // self.chunk) if self._np.size else 0
+
+    def __iter__(self) -> Iterator[Tuple[Tensor, np.ndarray]]:
+        """Yields (device_chunk, host_chunk) pairs in stream order."""
+        n, d = self._np.shape
+        bounds = [(i, min(i + self.chunk, n))
+                  for i in range(0, n, self.chunk)]
+        if not bounds:
+            return
+        if self.device.type != "cuda":
+            for a, b in bounds:
+                yield (torch.tensor(self._np[a:b], dtype=self.dtype,
+                                    device=self.device), self._np[a:b])
+            return
+        rows = min(self.chunk, n)
+        staging = [torch.empty((rows, d), dtype=self.dtype, pin_memory=True)
+                   for _ in range(2)]
+        done = [None, None]
+        copy_stream = torch.cuda.Stream(self.device)
+
+        def put(j: int):
+            a, b = bounds[j]
+            slot = j % 2
+            if done[slot] is not None:
+                done[slot].synchronize()
+            host = staging[slot][:b - a]
+            host.copy_(torch.from_numpy(np.ascontiguousarray(self._np[a:b])))
+            with torch.cuda.stream(copy_stream):
+                dev = torch.empty((b - a, d), dtype=self.dtype,
+                                  device=self.device)
+                dev.copy_(host, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(copy_stream)
+            done[slot] = ev
+            return dev, ev
+
+        nxt = put(0)
+        for j, (a, b) in enumerate(bounds):
+            dev, ev = nxt
+            if j + 1 < len(bounds):
+                nxt = put(j + 1)                 # overlap with the consumer
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(ev)
+            dev.record_stream(consumer)
+            yield dev, self._np[a:b]
+
+
+def fit_chunk_scan(cfg: FIGMNConfig, state: FIGMNState, xc: Tensor,
+                   do_prune: bool) -> FIGMNState:
+    """Reference path: ``figmn.fit`` over the chunk (consumes the state)."""
+    return figmn.fit(cfg, state, xc, do_prune=do_prune)
+
+
+def fit_chunk_vmem(cfg: FIGMNConfig, state: FIGMNState, xc: Tensor
+                   ) -> Tuple[FIGMNState, Tensor]:
+    """Resident path: the whole chunk in one kernel launch.
+
+    Gate-failing points leave the state untouched (the kernel cannot
+    create).  Returns (state', n_accepted) with the accept counter left ON
+    THE DEVICE — pulling it here would sync the host on every chunk.
+    """
+    n = int(xc.shape[0])
+    f32 = torch.float32
+    mu, lam, logdet, sp, nacc = figmn_stream.figmn_stream(
+        xc.to(f32).contiguous(), state.mu.to(f32).contiguous(),
+        state.lam.to(f32).contiguous(), state.logdet.to(f32).contiguous(),
+        state.sp.to(f32).contiguous(), state.active.to(torch.int32),
+        gate_threshold(cfg), cfg.dim)
+    dt = cfg.dtype
+    new = FIGMNState(
+        mu=mu.to(dt), lam=lam.to(dt), logdet=logdet.to(dt), sp=sp.to(dt),
+        # eq. 4: every active component ages once per point
+        v=state.v + n * state.active.to(dt),
+        active=state.active, n_created=state.n_created)
+    return new, nacc[0]
+
+
+def chunk_stats(cfg: FIGMNConfig, state: FIGMNState, xc: Tensor,
+                thresh: float) -> Tuple[Tensor, Tensor]:
+    """(fails (B,) bool, mean mixture log-likelihood ()) against the frozen
+    parameters, from ONE batched pass over Λ (``figmn.log_joint_batch``)."""
+    d2, logjoint = figmn.log_joint_batch(cfg, state, xc)
+    fails = ~torch.any(state.active[None, :] & (d2 < thresh), dim=1)
+    return fails, torch.logsumexp(logjoint, dim=1).mean()
+
+
+score_batch = figmn.score_batch

@@ -1,0 +1,138 @@
+"""StreamRuntime — the orchestrator that owns the online loop (counterpart of
+``repro.stream.runtime``).
+
+Chunked ingestion (ingest.py) and per-chunk telemetry (telemetry.py) over
+one mixture state on one device.  Invariant (tested): ``ingest`` over any
+chunking equals ONE ``core.figmn.fit`` over the concatenated stream.
+
+This slice ports the main path only: the lifecycle, drift, checkpoint,
+cost-table, telemetry-anomaly and chunk-retry options of the reference
+wait for later slices and are not fields here; the obs metrics and spans
+are left out.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.core import figmn, inference
+from repro_torch.core.types import (FIGMNConfig, FIGMNState, Tensor,
+                                    resolve_device)
+from repro_torch.stream import ingest, telemetry
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """Orchestration knobs (the FIGMN hyper-parameters live in FIGMNConfig).
+
+    chunk:        micro-batch size (points per dispatch).
+    path:         "auto" | "scan" | "vmem" (see ``ingest.select_path``).
+    device:       the torch device the state lives on; None means CUDA
+                  (and raises where there is no card).
+    on_nonfinite: NaN/Inf row policy of ``ingest.finite_guard``: "drop"
+                  (default), "reject" or "raise".
+    """
+    chunk: int = 256
+    path: str = "auto"
+    device: Optional[str] = None
+    on_nonfinite: str = "drop"
+
+
+class StreamRuntime:
+    """Owns mixture state + ingestion loop for one unbounded stream."""
+
+    def __init__(self, cfg: FIGMNConfig,
+                 rcfg: RuntimeConfig = RuntimeConfig()):
+        self.cfg = cfg
+        self.rcfg = rcfg
+        self.device = resolve_device(rcfg.device)
+        self.state: FIGMNState = figmn.init_state(cfg, self.device)
+        self.path = ingest.select_path(cfg, requested=rcfg.path,
+                                       device=self.device)
+        self.chunk_idx = 0
+        # Bumped on every state mutation: the factor cache's key.
+        self.state_epoch = 0
+        self.factor_cache = inference.FactorCache()
+        self.telemetry = telemetry.Telemetry(capacity=4096)
+        # Host copies of (n_active, n_created), refreshed by the one
+        # per-chunk sync, so the next chunk's path and creation count need
+        # no sync of their own.
+        self._n_active = 0
+        self._n_created = 0
+        # The vmem accept counter stays on the device until ``ingest`` ends.
+        self._accepted_dev = torch.zeros((), dtype=torch.int32,
+                                         device=self.device)
+
+    # ------------------------------------------------------------------
+    # ingestion
+    # ------------------------------------------------------------------
+
+    def ingest(self, xs) -> Dict[str, object]:
+        """Feed an (N, D) stream segment; returns the telemetry summary.
+        Callable repeatedly: state and telemetry carry across calls."""
+        loader = ingest.DoubleBufferedLoader(xs, self.rcfg.chunk,
+                                             self.device, self.cfg.dtype)
+        for xc_dev, xc_host in loader:
+            xh, n_bad = ingest.finite_guard(xc_host, self.rcfg.on_nonfinite)
+            if n_bad:
+                self.telemetry.add_quarantined(n_bad)
+                if xh.shape[0] == 0:
+                    continue
+                xc_dev = torch.as_tensor(xh, dtype=self.cfg.dtype,
+                                         device=self.device)
+            self._ingest_chunk(xc_dev)
+        self._fold_accept_counter()
+        return self.telemetry.summary()
+
+    def _ingest_chunk(self, xc: Tensor) -> None:
+        t0 = time.perf_counter()
+        path = self.path
+        if path == "vmem" and self._n_active == 0:
+            path = "scan"            # the kernel cannot create the first slot
+        if path == "vmem":
+            self.state, nacc = ingest.fit_chunk_vmem(self.cfg, self.state, xc)
+            self._accepted_dev += nacc                  # stays on the device
+        else:
+            self.state = ingest.fit_chunk_scan(
+                self.cfg, self.state, xc, do_prune=self.cfg.spmin > 0)
+        self.state_epoch += 1
+        # The one per-chunk device sync the telemetry needs; it also fences
+        # the chunk, so latency_s includes the device compute on every path.
+        n_created0 = self._n_created
+        self._n_active, self._n_created = torch.stack(
+            [self.state.n_active, self.state.n_created]).tolist()
+        self.telemetry.record(telemetry.ChunkMetrics(
+            idx=self.chunk_idx, n_points=int(xc.shape[0]),
+            active_k=self._n_active, created=self._n_created - n_created0,
+            path=path, latency_s=time.perf_counter() - t0))
+        self.chunk_idx += 1
+
+    def _fold_accept_counter(self) -> None:
+        n = int(self._accepted_dev)
+        if n:
+            self.telemetry.add_accepted(n)
+            self._accepted_dev.zero_()
+
+    # ------------------------------------------------------------------
+    # reads
+    # ------------------------------------------------------------------
+
+    def score(self, xs) -> Tensor:
+        """(N,) mixture log-densities under the current state (read-only)."""
+        xs = torch.as_tensor(xs, dtype=self.cfg.dtype, device=self.device)
+        return ingest.score_batch(self.cfg, self.state, xs)
+
+    def predict(self, xs, targets, return_var: bool = False):
+        """(N, o) eq. 27 conditional means of ``targets`` given the rest
+        (read-only; raises on an empty pool).  The factor stage is cached
+        per state epoch.  return_var=True also returns the (N, o)
+        conditional variance as a (mean, var) pair."""
+        inference.require_nonempty(self.state)
+        factors = self.factor_cache.get(self.cfg, self.state, targets,
+                                        self.state_epoch)
+        return inference.predict_batch(self.cfg, self.state, xs, targets,
+                                       return_var=return_var,
+                                       factors=factors)

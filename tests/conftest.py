@@ -28,6 +28,9 @@ def pytest_configure(config):
         "markers",
         "property: property-based hypothesis suite (CI job `property`; "
         "skipped where hypothesis is not installed)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's kernels); skipped without one")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -1,0 +1,249 @@
+"""The port's kernel modules (``repro_torch.kernels``) against the JAX
+reference.
+
+On the CPU every wrapper takes its plain PyTorch version, so these tests
+hold the plain versions against the Pallas kernels in interpret mode (run
+as tests/test_kernels.py and tests/test_figmn_stream_kernel.py run them)
+and against ``repro.kernels.ref``, and the ``ops`` wrappers against
+``repro.kernels.ops`` at a D that is not a multiple of 128.  The CUDA
+kernels themselves run only on a card: tests/test_torch_cuda.py holds each
+against its plain version there.
+
+Tolerances: float32 throughout.  Matvecs and quadratic forms sum D products
+in another order than XLA (rtol 2e-5, atol 2e-4·D, as tests/test_kernels.py
+uses for the Pallas kernels); elementwise passes round identically except
+where a product feeds a difference (rtol 1e-6 / atol 1e-6 of the scale).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import figmn as jfigmn
+from repro.core.types import FIGMNConfig as JConfig
+from repro.core.types import chi2_quantile as jchi2
+from repro.kernels import figmn_stream as jstream
+from repro.kernels import figmn_update as jupdate
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build, figmn_stream, figmn_update, ops, ref
+
+SHAPES = [(1, 4), (4, 5), (3, 130), (2, 257)]
+
+
+def _psd(rng, k, d):
+    a = rng.normal(0, 1, (k, d, d)).astype(np.float32)
+    return (np.einsum("kde,kfe->kdf", a, a)
+            + np.eye(d, dtype=np.float32) * d).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _pad(a, dpad):
+    out = np.zeros(a.shape[:-2] + (dpad, dpad) if a.ndim == 3
+                   else a.shape[:-1] + (dpad,), np.float32)
+    if a.ndim == 3:
+        out[:, :a.shape[1], :a.shape[2]] = a
+    else:
+        out[:, :a.shape[1]] = a
+    return out
+
+
+def _close(got, want, rtol, atol):
+    np.testing.assert_allclose(np.asarray(got, np.float64),
+                               np.asarray(want, np.float64),
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("k,d", [(1, 4), (4, 5), (3, 130), (2, 256)])
+def test_matvec2_plain_matches_pallas_interpret(k, d):
+    rng = np.random.default_rng(d)
+    lam = _psd(rng, k, d)
+    e = rng.normal(0, 1, (k, d)).astype(np.float32)
+    m = rng.normal(0, 0.1, (k, d)).astype(np.float32)
+    dpad = max(128, -(-d // 128) * 128)
+    y, z = jupdate.matvec2_pallas(jnp.asarray(_pad(lam, dpad)),
+                                  jnp.asarray(_pad(e, dpad)),
+                                  jnp.asarray(_pad(m, dpad)),
+                                  block_d=128, interpret=True)
+    ty, tz = figmn_update.matvec2(_t(lam), _t(e), _t(m))
+    _close(ty, np.asarray(y)[:, :d], 2e-5, 2e-4 * d)
+    _close(tz, np.asarray(z)[:, :d], 2e-5, 2e-4 * d)
+    # the one-vector variant gives the same y
+    ty1, tz1 = figmn_update.matvec2(_t(lam), _t(e))
+    assert tz1 is None and torch.equal(ty1, ty)
+
+
+@pytest.mark.parametrize("k,d", [(1, 4), (4, 5), (3, 130), (2, 256)])
+@pytest.mark.parametrize("two", [True, False])
+def test_rank2_apply_plain_matches_pallas_interpret(k, d, two):
+    rng = np.random.default_rng(d * 3 + two)
+    lam = _psd(rng, k, d)
+    y = rng.normal(0, 1, (k, d)).astype(np.float32)
+    yb = rng.normal(0, 1, (k, d)).astype(np.float32) if two \
+        else np.zeros((k, d), np.float32)
+    inv1mw = rng.uniform(1.0, 2.0, k).astype(np.float32)
+    c1 = rng.uniform(-0.5, 0.5, k).astype(np.float32)
+    c2 = rng.uniform(-0.5, 0.5, k).astype(np.float32) if two \
+        else np.zeros(k, np.float32)
+    dpad = max(128, -(-d // 128) * 128)
+    want = jupdate.rank2_apply_pallas(
+        jnp.asarray(_pad(lam, dpad)), jnp.asarray(_pad(y, dpad)),
+        jnp.asarray(_pad(yb, dpad)), jnp.asarray(inv1mw), jnp.asarray(c1),
+        jnp.asarray(c2), block_r=128, block_c=128, interpret=True)
+    got = figmn_update.rank2_apply(
+        _t(lam), _t(y), _t(yb) if two else None, _t(inv1mw), _t(c1),
+        _t(c2) if two else None)
+    # same association as the Pallas body, elementwise: equal up to XLA's
+    # own fusion of the multiply-adds
+    scale = float(np.abs(lam).max())
+    _close(got, np.asarray(want)[:, :d, :d], 1e-6, 1e-6 * scale)
+
+
+def _formed_mixture(seed=0, d=8, k=4):
+    """tests/test_figmn_stream_kernel.py's fixture: a mixture formed by the
+    reference scan over three seeded clusters."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 6, (3, d))
+    x0 = np.concatenate([rng.normal(c, 1.0, (30, d)) for c in centers])
+    cfg = JConfig(kmax=k, dim=d, beta=0.05, delta=1.0, vmin=1e9, spmin=0.0,
+                  update_mode="exact",
+                  sigma_ini=jfigmn.sigma_from_data(
+                      jnp.asarray(x0, jnp.float32), 1.0))
+    state = jfigmn.fit(cfg, jfigmn.init_state(cfg),
+                       jnp.asarray(x0, jnp.float32))
+    xs = np.concatenate([rng.normal(c, 0.8, (14, d)) for c in centers])
+    return cfg, state, xs.astype(np.float32)
+
+
+@pytest.mark.parametrize("d,n", [(8, 40), (16, 42)])
+def test_figmn_stream_plain_matches_pallas_interpret(d, n):
+    cfg, state, xs = _formed_mixture(d=d)
+    xs = xs[:n]
+    thresh = float(jchi2(d, 1.0 - cfg.beta))
+    s = {f: np.array(getattr(state, f)) for f in ("mu", "lam", "logdet",
+                                                   "sp", "active")}
+    got = figmn_stream.figmn_stream(
+        _t(xs), _t(s["mu"]), _t(s["lam"]), _t(s["logdet"]), _t(s["sp"]),
+        torch.from_numpy(s["active"].astype(np.int32)), thresh, d)
+    # the Pallas wrapper donates its state inputs
+    want = jstream.figmn_stream_pallas(
+        jnp.asarray(xs), jnp.asarray(s["mu"]), jnp.asarray(s["lam"]),
+        jnp.asarray(s["logdet"]), jnp.asarray(s["sp"]),
+        jnp.asarray(s["active"].astype(np.int32)),
+        jnp.asarray([thresh], jnp.float32), dim=d, n_points=n,
+        interpret=True)
+    assert int(got[4][0]) == int(want[4][0])
+    m = s["active"]
+    # tolerances of tests/test_figmn_stream_kernel.py (n sequential points)
+    _close(got[0].numpy()[m], np.asarray(want[0])[m], 0, 2e-4)
+    _close(got[1].numpy()[m], np.asarray(want[1])[m], 1e-3, 1e-3)
+    _close(got[2].numpy()[m], np.asarray(want[2])[m], 0, 1e-3)
+    _close(got[3].numpy()[m], np.asarray(want[3])[m], 0, 1e-3)
+
+
+@pytest.mark.parametrize("k,d", SHAPES)
+def test_plain_versions_match_reference_ref(k, d):
+    rng = np.random.default_rng(k * 1000 + d)
+    lam = _psd(rng, k, d)
+    e = rng.normal(0, 1, (k, d)).astype(np.float32)
+    m = rng.normal(0, 0.1, (k, d)).astype(np.float32)
+    w = rng.uniform(0.05, 0.45, k).astype(np.float32)
+    tol = dict(rtol=2e-5, atol=2e-4 * d)
+    _close(ref.mahalanobis_ref(_t(e), _t(lam)),
+           jref.mahalanobis_ref(jnp.asarray(e), jnp.asarray(lam)),
+           2e-5, 2e-4 * d * d)
+    for got, want in zip(ref.figmn_matvecs_ref(_t(lam), _t(e), _t(m)),
+                         jref.figmn_matvecs_ref(jnp.asarray(lam),
+                                                jnp.asarray(e),
+                                                jnp.asarray(m))):
+        _close(got, want, **tol)
+    got = ref.precision_rank2_update_ref(_t(lam), _t(e), _t(m), _t(w))
+    want = jref.precision_rank2_update_ref(jnp.asarray(lam), jnp.asarray(e),
+                                           jnp.asarray(m), jnp.asarray(w))
+    scale = float(np.abs(np.asarray(want[0])).max())
+    _close(got[0], want[0], 0, 5e-5 * scale)
+    _close(got[1], want[1], 2e-5, 2e-4 * d * d)
+    _close(got[2], want[2], 1e-4, 1e-5)
+    got = ref.precision_rank1_update_exact_ref(_t(lam), _t(e), _t(w))
+    want = jref.precision_rank1_update_exact_ref(
+        jnp.asarray(lam), jnp.asarray(e), jnp.asarray(w))
+    scale = float(np.abs(np.asarray(want[0])).max())
+    _close(got[0], want[0], 0, 5e-5 * scale)
+    _close(got[1], want[1], 2e-5, 2e-4 * d * d)
+
+
+def _ops_inputs(k, d, seed):
+    rng = np.random.default_rng(seed)
+    lam = _psd(rng, k, d)
+    e = rng.normal(0, 1, (k, d)).astype(np.float32)
+    m = rng.normal(0, 0.1, (k, d)).astype(np.float32)
+    w = rng.uniform(0.05, 0.45, k).astype(np.float32)
+    logdet = rng.normal(0, 1, k).astype(np.float32)
+    return lam, e, m, w, logdet
+
+
+@pytest.mark.parametrize("k,d", [(4, 5), (3, 130)])
+def test_ops_wrappers_match_reference_ops(k, d):
+    """The port's ops (no padding) against repro.kernels.ops (padded to 128
+    lanes, Pallas in interpret mode).  The port updates Λ in place, so each
+    call gets its own copy."""
+    lam, e, m, w, logdet = _ops_inputs(k, d, d * 7 + k)
+    J = jnp.asarray
+    _close(ops.matvec(_t(lam), _t(e)), jops.matvec(J(lam), J(e)),
+           2e-5, 2e-4 * d)
+    scale = float(np.abs(lam).max())
+    pairs = [
+        (ops.precision_rank2_update(_t(lam), _t(logdet), _t(e), _t(m),
+                                    _t(w), d),
+         jops.precision_rank2_update(J(lam), J(logdet), J(e), J(m), J(w), d)),
+        (ops.precision_rank1_update_exact(_t(lam), _t(logdet), _t(e), _t(w),
+                                          d),
+         jops.precision_rank1_update_exact(J(lam), J(logdet), J(e), J(w), d)),
+    ]
+    y = np.asarray(jops.matvec(J(lam), J(e)))
+    d2 = np.einsum("kd,kd->k", e, y).astype(np.float32)
+    for mode in ("exact", "paper"):
+        pairs.append((ops.fused_apply(_t(lam), _t(logdet), _t(y), _t(d2),
+                                      _t(w), d, mode),
+                      jops.fused_apply(J(lam), J(logdet), J(y), J(d2), J(w),
+                                       d, mode)))
+    for (glam, gld), (wlam, wld) in pairs:
+        _close(glam, wlam, 0, 5e-5 * scale)
+        _close(gld, wld, 0, 1e-4)
+
+
+def test_ops_update_lambda_in_place():
+    lam, e, m, w, logdet = _ops_inputs(3, 6, 1)
+    t = _t(lam)
+    out, _ = ops.precision_rank1_update_exact(t, _t(logdet), _t(e), _t(w), 6)
+    assert out.data_ptr() == t.data_ptr()
+
+
+def test_wrappers_check_inputs_and_count_no_cpu_launch():
+    lam, e, m, w, logdet = _ops_inputs(2, 6, 2)
+    before = dict(_build.LAUNCHES)
+    figmn_update.matvec2(_t(lam), _t(e), _t(m))
+    figmn_update.rank2_apply(_t(lam), _t(e), None, _t(w), _t(w), None)
+    assert _build.LAUNCHES == before          # plain versions launch nothing
+    with pytest.raises(TypeError):
+        figmn_update.matvec2(_t(lam).double(), _t(e).double())
+    with pytest.raises(ValueError):
+        figmn_update.matvec2(_t(lam).transpose(1, 2), _t(e))
+    with pytest.raises(ValueError):
+        figmn_update.matvec2(_t(lam), _t(e)[:, :5])
+    with pytest.raises(ValueError):
+        figmn_update.matvec2(_t(lam).to("meta"), _t(e).to("meta"))
+    with pytest.raises(ValueError):
+        figmn_update.rank2_apply(_t(lam), _t(e), _t(e), _t(w), _t(w), None)
+
+
+def test_resident_working_set_formula():
+    """smem_bytes mirrors the kernel's shared-memory layout: the sweep's
+    (D=32, K=16) cell fits an H100 block (227 KB), (D=64, K=32) does not."""
+    assert figmn_stream.smem_bytes(16, 32) == 4 * (16 * 32 * 32 + 3 * 16 * 32
+                                                   + 7 * 16 + 32)
+    assert figmn_stream.smem_bytes(16, 32) <= 232448
+    assert figmn_stream.smem_bytes(32, 64) > 232448
