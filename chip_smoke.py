@@ -19,7 +19,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   4. the resident path: a StreamRuntime at K = 16, D = 32 whose "auto" path
      must resolve to the resident kernel, held against the plain resident
      loop replayed on the card.
-  5. one JSON line with every kernel, the card line, and the result line.
+  5. the top-C shortlist path at full width: the phase 3 stream with
+     ``shortlist_c = 8``, whose "auto" path must resolve to "sparse";
+     ``partial_fit`` (one gathered_matvec and one scatter_apply launch per
+     point), the shortlisted ``score_samples`` / ``predict_proba``, a
+     sync-free ``fit_sparse`` chunk, the kernel backend against the plain
+     one, the shortlisted reads against the plain reads, and a profile.
+  6. one JSON line with every kernel, the card line, and the result line.
 
 Imports neither JAX nor the reference package.
 """
@@ -55,13 +61,27 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip()
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+_L2_FLUSH = None
+
+
+def flush_l2() -> None:
+    """Overwrite the 50 MB L2 cache with 128 MB of other data."""
+    global _L2_FLUSH
+    if _L2_FLUSH is None:
+        _L2_FLUSH = torch.empty(32 * 2 ** 20, device="cuda")
+    _L2_FLUSH.zero_()
+
+
+def time_ms(fn, reps: int, warmup: int = 2, cold: bool = False) -> float:
     """Median milliseconds of one call of ``fn`` on the card (CUDA events
-    around each call)."""
+    around each call).  ``cold`` flushes the L2 cache before each call,
+    outside the timed events, for work that would otherwise sit in it."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
+        if cold:
+            flush_l2()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -93,8 +113,9 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
 # phase 2: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def phase_kernels(dev):
-    from repro_torch.kernels import _build, figmn_stream, figmn_update, ref
+def phase_kernels(dev, warm):
+    from repro_torch.kernels import (_build, figmn_sparse, figmn_stream,
+                                     figmn_update, mahalanobis, ref)
     from repro_torch.core import figmn
     from repro_torch.core.types import FIGMNConfig, gate_threshold
 
@@ -126,7 +147,8 @@ def phase_kernels(dev):
         ms=time_ms(lambda: figmn_update.matvec2(lam, a), 20),
         plain_ms=time_ms(lambda: ref.matvec_ref(lam, a), 20),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: torch.bmm(lam, a[:, :, None]), 20))
+        library_ms=time_ms(lambda: torch.bmm(lam, a[:, :, None]), 20),
+        library_call="torch.bmm")
 
     log(f"rank2_apply at K={k} D={d}")
     w = torch.rand((k,), generator=g, device=dev) * 0.5
@@ -154,7 +176,105 @@ def phase_kernels(dev):
         plain_ms=time_ms(lambda: ref.rank2_apply_ref(
             lam_t, a, None, one, small, None), 20),
         bound_ms=bms, bound_by=by, library_ms=None)
-    del lam, lam_t, out, out2
+
+    c = 8
+    log(f"gathered_matvec at K={k} D={d} C={c} (cold L2)")
+    idx = torch.randperm(k, generator=g, device=dev)[:c].to(torch.int32)
+    diff = torch.randn((c, d), generator=g, device=dev)
+    ys = figmn_sparse.gathered_matvec(lam, diff, idx)
+    err = max_err(ys, ref.gathered_matvec_ref(lam, diff, idx))
+    check_close("gathered_matvec", err, 2 * d * EPS32 * float(torch.einsum(
+        "kde,ke->kd", lam[idx.long()].abs(), diff.abs()).max()))
+    rows_sel = lam[idx.long()].contiguous()
+    nbytes, flops = 4 * (c * d * d + 2 * c * d) + 4 * c, 2 * c * d * d
+    bms, by = bound_ms(nbytes, flops)
+    rows["gathered_matvec"] = dict(
+        name="gathered_matvec", route="cuda",
+        source="src/repro_torch/kernels/csrc/figmn_sparse.cu",
+        replaces="src/repro/kernels/figmn_sparse.py:47",
+        max_abs_err=err,
+        ms=time_ms(lambda: figmn_sparse.gathered_matvec(lam, diff, idx), 20,
+                   cold=True),
+        plain_ms=time_ms(lambda: ref.gathered_matvec_ref(lam, diff, idx),
+                         20, cold=True),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.bmm(rows_sel, diff[:, :, None]),
+                           20, cold=True),
+        library_call="torch.bmm on rows gathered beforehand")
+    warm["gathered_matvec_ms"] = time_ms(
+        lambda: figmn_sparse.gathered_matvec(lam, diff, idx), 20)
+
+    log(f"scatter_apply at K={k} D={d} C={c} (cold L2)")
+    coefs = torch.stack([1.0 / (1.0 - w[:c]), w[:c]], dim=1).contiguous()
+    got_s = figmn_sparse.scatter_apply(lam.clone(), ys, coefs, idx)
+    want_s = ref.scatter_apply_ref(lam.clone(), ys, coefs, idx)
+    rest = torch.ones(k, dtype=torch.bool, device=dev)
+    rest[idx.long()] = False
+    if not torch.equal(got_s[rest], lam[rest]):
+        raise AssertionError("scatter_apply touched a row outside idx")
+    # same association, no multiply-add contraction: bit-equal
+    err = max_err(got_s, want_s)
+    check_close("scatter_apply (bit-equal; K-C rows untouched)", err, 0.0)
+    del got_s, want_s
+    lam_t = lam.clone()
+    small = torch.stack([torch.ones_like(w[:c]), 1e-6 * w[:c]], dim=1)
+    nbytes = 4 * (2 * c * d * d + c * d + 2 * c) + 4 * c
+    bms, by = bound_ms(nbytes, 3 * c * d * d)
+    rows["scatter_apply"] = dict(
+        name="scatter_apply", route="cuda",
+        source="src/repro_torch/kernels/csrc/figmn_sparse.cu",
+        replaces="src/repro/kernels/figmn_sparse.py:77",
+        max_abs_err=err,
+        ms=time_ms(lambda: figmn_sparse.scatter_apply(lam_t, ys, small, idx),
+                   20, cold=True),
+        plain_ms=time_ms(lambda: ref.scatter_apply_ref(lam_t, ys, small,
+                                                       idx), 20, cold=True),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    warm["scatter_apply_ms"] = time_ms(
+        lambda: figmn_sparse.scatter_apply(lam_t, ys, small, idx), 20)
+
+    log(f"mahalanobis at K={k} D={d} (precision-like Λ)")
+    # Λ as the learner keeps it, positive diagonal plus a low-rank PSD
+    # part, so d² carries the sum and a dropped row shows above the bound
+    del lam_t
+    q = torch.randn((k, d, 8), generator=g, device=dev) / d ** 0.5
+    lam_p = torch.diag_embed(0.5 + torch.rand((k, d), generator=g,
+                                              device=dev))
+    lam_p.baddbmm_(q, q.transpose(1, 2))
+    del q
+    d2 = mahalanobis.mahalanobis(a, lam_p)
+    want = ref.mahalanobis_ref(a, lam_p)
+    # each inner sum Λ_r·diff errs by at most γ_D·Σ_c|Λ_rc||diff_c|, the
+    # outer sum by γ_D·Σ_r|diff_r·s_r|; two orders differ by twice that
+    gamma = (d + 1) * EPS32 / (1 - (d + 1) * EPS32)
+    s_rows = torch.einsum("kde,ke->kd", lam_p, a)
+    tol_k = 2 * gamma * (torch.einsum("kd,kde,ke->k", a.abs(), lam_p.abs(),
+                                      a.abs())
+                         + (a * s_rows).abs().sum(dim=1))
+    err = max_err(d2, want)
+    worst = float(((d2 - want).abs() / tol_k).max())
+    log(f"  mahalanobis: max_abs_err {err:.3e}; largest error over its "
+        f"component's bound {worst:.3e} (tolerance 1)")
+    if not worst <= 1.0:
+        raise AssertionError(f"mahalanobis: error {worst} of its bound")
+    # the bound must catch a row of mean weight (d²/D) left out of any Λ_k
+    power = float((tol_k / (want / d)).max())
+    log(f"  mahalanobis: largest bound is {power:.3f} of a mean row's term")
+    if not power < 1.0:
+        raise AssertionError("mahalanobis: the bound would pass a dropped row")
+    if not torch.equal(d2, mahalanobis.mahalanobis(a, lam_p)):
+        raise AssertionError("mahalanobis: repeated runs differ")
+    nbytes, flops = 4 * (k * d * d + k * d + k), 2 * k * d * d + 2 * k * d
+    bms, by = bound_ms(nbytes, flops)
+    rows["mahalanobis"] = dict(
+        name="mahalanobis", route="cuda",
+        source="src/repro_torch/kernels/csrc/mahalanobis.cu",
+        replaces="src/repro/kernels/mahalanobis.py:39",
+        max_abs_err=err,
+        ms=time_ms(lambda: mahalanobis.mahalanobis(a, lam_p), 20),
+        plain_ms=time_ms(lambda: ref.mahalanobis_ref(a, lam_p), 20),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    del lam, lam_p, s_rows, out, out2, rows_sel
 
     kr, dr, n = 16, 32, 256
     log(f"figmn_stream at K={kr} D={dr} N={n}")
@@ -202,7 +322,7 @@ def phase_kernels(dev):
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
-            f"{r['library_ms']})")
+            f"{r['library_ms']} {r.get('library_call', '')})")
     return rows
 
 
@@ -218,23 +338,42 @@ def resident_stream(n: int, d: int, seed: int, modes: int = 4) -> np.ndarray:
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
+def full_width_stream(dev):
+    """Table 1 mnist-subset shape: N = 1000, 784 features + 10 one-hot
+    labels (D = 794), K = 64, β = 0.001, δ = 1, exact mode, kernels."""
+    from repro_torch.core import figmn
+    from repro_torch.core.types import FIGMNConfig
+    from repro_torch.data.gmm_streams import gaussian_classes
+
+    n, feats, classes = 1000, 784, 10
+    x, y = gaussian_classes(n, feats, classes, seed=0)
+    joint = np.concatenate([x, np.eye(classes, dtype=np.float32)[y]], 1)
+    dim = feats + classes
+    sigma = figmn.sigma_from_data(torch.from_numpy(joint).to(dev), 1.0)
+    cfg = FIGMNConfig(kmax=64, dim=dim, beta=0.001, delta=1.0,
+                      update_mode="exact", backend="pallas", sigma_ini=sigma)
+    return n, classes, x, y, joint, list(range(feats, dim)), cfg
+
+
+def timed(fn):
+    """(result, seconds) on the host clock around work ending in a
+    device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
 def phase_full_width(dev):
     import dataclasses
     from repro_torch.api import Mixture, MixtureSpec
     from repro_torch.core import figmn
-    from repro_torch.core.types import FIGMNConfig
-    from repro_torch.data.gmm_streams import gaussian_classes
     from repro_torch.kernels import _build
     from repro_torch.stream import RuntimeConfig
 
-    n, feats, classes = 1000, 784, 10                # Table 1 mnist-subset
-    x, y = gaussian_classes(n, feats, classes, seed=0)
-    joint = np.concatenate([x, np.eye(classes, dtype=np.float32)[y]], 1)
-    dim = feats + classes
-    targets = list(range(feats, dim))
-    sigma = figmn.sigma_from_data(torch.from_numpy(joint).to(dev), 1.0)
-    cfg = FIGMNConfig(kmax=64, dim=dim, beta=0.001, delta=1.0,
-                      update_mode="exact", backend="pallas", sigma_ini=sigma)
+    n, classes, x, y, joint, targets, cfg = full_width_stream(dev)
+    dim = cfg.dim
     log(f"full width: N={n} D={dim} K={cfg.kmax} chunk=256 path=scan "
         f"backend=pallas")
     spec = MixtureSpec(model=cfg, runtime=RuntimeConfig(
@@ -245,13 +384,6 @@ def phase_full_width(dev):
     warm.score_samples(joint[:32])
     warm.predict_proba(x[:32], targets)
     mix = Mixture(spec)
-
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
 
     _build.reset_launches()
     _, fit_s = timed(lambda: mix.partial_fit(joint))
@@ -307,20 +439,22 @@ def phase_full_width(dev):
                           created=int(mix.state.n_created))
 
 
-def phase_profile(dev, cfg, xs):
-    """Where the time goes on the full-width scan path: 64 learning steps
-    under torch.profiler; device time by kernel and the device's busy
-    share of the window's wall time (profiler overhead included)."""
+def phase_profile(dev, cfg, xs, fit=None, label="scan"):
+    """Where the time goes on a full-width ingest path: 64 learning steps
+    of ``fit`` (``figmn.fit`` unless given) under torch.profiler; device
+    time by kernel and the device's busy share of the window's wall time
+    (profiler overhead included)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core import figmn
 
-    state = figmn.fit(cfg, figmn.init_state(cfg, dev), xs[:64])
+    fit = fit or figmn.fit
+    state = fit(cfg, figmn.init_state(cfg, dev), xs[:64])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = figmn.fit(cfg, state, xs[64:128])
+        state = fit(cfg, state, xs[64:128])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only: the CPU op rows also carry the device time
@@ -334,12 +468,127 @@ def phase_profile(dev, cfg, xs):
     out = dict(points=64, wall_us=wall_us, device_busy_us=busy,
                busy_share=busy / wall_us if busy else None,
                kernel_launches=n_launch, top_kernels_us=dict(top))
-    log(f"profile (64 full-width steps): wall {wall_us:.0f} us, device busy "
+    log(f"profile (64 full-width {label} steps): wall {wall_us:.0f} us, "
+        f"device busy "
         f"{busy:.0f} us, {n_launch} kernel launches" if busy
         else "profile: device time not measured")
     for k, v in top:
         log(f"  {v:10.1f} us  {k[:90]}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the top-C shortlist path at full width
+# ---------------------------------------------------------------------------
+
+def phase_sparse(dev):
+    import dataclasses
+    from repro_torch import interop
+    from repro_torch.api import Mixture, MixtureSpec
+    from repro_torch.core import figmn, inference, shortlist
+    from repro_torch.kernels import _build
+    from repro_torch.stream import RuntimeConfig
+
+    n, classes, x, y, joint, targets, cfg = full_width_stream(dev)
+    # C of the repo's shortlist acceptance point
+    # (benchmarks/figmn_sparse.py:45-46)
+    cfg = dataclasses.replace(cfg, shortlist_c=8)
+    spec = MixtureSpec(model=cfg, runtime=RuntimeConfig(
+        chunk=256, path="auto", device=str(dev)))
+    warm = Mixture(spec)
+    log(f"sparse: N={n} D={cfg.dim} K={cfg.kmax} C={cfg.shortlist_c} "
+        f"chunk=256 path 'auto' -> {warm.engine.path!r}")
+    if warm.engine.path != "sparse":
+        raise AssertionError(f"'auto' resolved to {warm.engine.path!r}, "
+                             "not 'sparse'")
+    warm.partial_fit(joint[:32])
+    warm.score_samples(joint[:32])
+    warm.predict_proba(x[:32], targets)
+    mix = Mixture(spec)
+
+    _build.reset_launches()
+    _, fit_s = timed(lambda: mix.partial_fit(joint))
+    fit_launches = dict(_build.LAUNCHES)
+    score, score_s = timed(lambda: mix.score_samples(joint))
+    proba, predict_s = timed(lambda: mix.predict_proba(x, targets))
+    launches = dict(_build.LAUNCHES)
+    score_rep = statistics.median(
+        timed(lambda: mix.score_samples(joint))[1] for _ in range(3))
+    predict_rep = statistics.median(
+        timed(lambda: mix.predict_proba(x, targets))[1] for _ in range(3))
+    acc = float((proba.argmax(1).cpu().numpy() == y).mean())
+    log(f"  active K {mix.n_active}, created {int(mix.state.n_created)}, "
+        f"{n / fit_s:.1f} points/s ({fit_s:.3f} s), score {score_s * 1e3:.2f}"
+        f" ms (repeat {score_rep * 1e3:.2f}), predict_proba "
+        f"{predict_s * 1e3:.2f} ms (repeat, factors cached "
+        f"{predict_rep * 1e3:.2f}), label accuracy {acc:.4f}")
+    log(f"  launches: partial_fit {fit_launches}; with the reads {launches}")
+    for name in ("gathered_matvec", "scatter_apply"):
+        if fit_launches[name] != n:
+            raise AssertionError(f"{name}: {fit_launches[name]} launches in "
+                                 f"partial_fit, want one per point ({n})")
+    if launches["gathered_matvec"] <= n:
+        raise AssertionError("the shortlisted reads missed gathered_matvec")
+    if tuple(score.shape) != (n,) or not bool(torch.isfinite(score).all()):
+        raise AssertionError("score_samples: not N finite values")
+    if tuple(proba.shape) != (n, classes) \
+            or not bool(torch.isfinite(proba).all()):
+        raise AssertionError("predict_proba: not (N, 10) finite values")
+
+    # no host sync inside a sparse chunk
+    xs = torch.from_numpy(joint).to(dev)
+    st = mix.state.clone()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st = shortlist.fit_sparse(cfg, st, xs[:256])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log("  fit_sparse over 256 points under set_sync_debug_mode('error'): "
+        "no sync")
+
+    # the kernel backend against the plain backend on a prefix (the phase 3
+    # tolerances)
+    m = 128
+    plain = dataclasses.replace(cfg, backend="jnp")
+    s_k = shortlist.fit_sparse(cfg, figmn.init_state(cfg, dev), xs[:m])
+    s_p = shortlist.fit_sparse(plain, figmn.init_state(cfg, dev), xs[:m])
+    if int(s_k.n_created) != int(s_p.n_created) \
+            or not torch.equal(s_k.active, s_p.active):
+        raise AssertionError("backends created different components")
+    act = s_p.active
+    check_close("sparse lam (kernels vs plain, 128 points)",
+                max_err(s_k.lam[act], s_p.lam[act]),
+                1e-3 * float(s_p.lam[act].abs().max()))
+    check_close("sparse logdet", max_err(s_k.logdet[act], s_p.logdet[act]),
+                1e-4 * float(s_p.logdet[act].abs().max()))
+    check_close("sparse mu", max_err(s_k.mu[act], s_p.mu[act]),
+                1e-4 * float(s_p.mu[act].abs().max()))
+
+    # the shortlisted reads on the card (the gathered_matvec kernel) against
+    # the plain read path (the wrapper's plain einsum) on CPU copies of the
+    # state, 64 rows
+    q = xs[:64]
+    st_cpu = interop.state_from_numpy(interop.state_to_numpy(mix.state),
+                                      "cpu")
+    sk = shortlist.score_batch_sparse(cfg, mix.state, q)
+    sp_ = shortlist.score_batch_sparse(cfg, st_cpu, q.cpu())
+    check_close("sparse score (card kernel vs plain, 64 rows)",
+                max_err(sk.cpu(), sp_), 1e-4 * float(sp_.abs().max()))
+    pk = inference.predict_batch_sparse(cfg, mix.state, x[:64], targets)
+    pp = inference.predict_batch_sparse(cfg, st_cpu, x[:64], targets)
+    check_close("sparse predict (card kernel vs plain, 64 rows)",
+                max_err(pk.cpu(), pp), 1e-3)
+    profile_out = phase_profile(dev, cfg, xs, fit=shortlist.fit_sparse,
+                                label="sparse")
+    return launches, dict(profile=profile_out, points_per_s=n / fit_s,
+                          score_ms=score_s * 1e3,
+                          score_repeat_ms=score_rep * 1e3,
+                          predict_ms=predict_s * 1e3,
+                          predict_repeat_ms=predict_rep * 1e3,
+                          accuracy=acc, active_k=mix.n_active,
+                          created=int(mix.state.n_created))
 
 
 # ---------------------------------------------------------------------------
@@ -426,17 +675,25 @@ def main() -> int:
     log(f"kernels built and loaded in {build_s:.2f} s "
         f"(nvcc {_build.build_seconds} s)\n{_build.build_log}")
 
-    rows = phase_kernels(dev)
+    warm = {}
+    rows = phase_kernels(dev, warm)
     main_launches, full = phase_full_width(dev)
     res_launches, res = phase_resident(dev)
+    sparse_launches, sparse = phase_sparse(dev)
+    sparse["warm_l2_ms"] = warm
     rows["matvec2"]["launches"] = main_launches["matvec2"]
     rows["rank2_apply"]["launches"] = main_launches["rank2_apply"]
     rows["figmn_stream"]["launches"] = res_launches["figmn_stream"]
+    # mahalanobis has no runtime caller (nor has the reference's kernel):
+    # its count from the sparse run is 0
+    for name in ("gathered_matvec", "scatter_apply", "mahalanobis"):
+        rows[name]["launches"] = sparse_launches[name]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k_: r[k_] for k_ in keys}
                                   for r in rows.values()],
                       "full_width": full, "resident": res,
+                      "sparse": sparse,
                       "build_s": build_s}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -87,8 +87,15 @@ class Mixture:
     @property
     def state(self) -> FIGMNState:
         """The live mixture state.  The next ``partial_fit`` may update its
-        Λ in place: clone it to keep it."""
+        Λ (and, on the shortlist path, its logdet) in place: clone it to
+        keep it."""
         return self.engine.state
+
+    @property
+    def read_shortlist_c(self) -> int:
+        """The read path's resolved shortlist width (0 = dense): what the
+        engine actually serves with."""
+        return self.cfg.shortlist_c if self.engine.path == "sparse" else 0
 
     @property
     def n_active(self) -> int:
@@ -99,4 +106,5 @@ class Mixture:
 
     def __repr__(self) -> str:
         return (f"Mixture(tier={self.spec.tier!r}, dim={self.cfg.dim}, "
-                f"kmax={self.cfg.kmax}, path={self.engine.path!r})")
+                f"kmax={self.cfg.kmax}, path={self.engine.path!r}, "
+                f"shortlist_c={self.cfg.shortlist_c})")

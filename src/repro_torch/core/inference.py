@@ -14,10 +14,16 @@ Only W (o×o) is ever solved.  The read path is two stages: the factor stage
 the blocked (block_b, ·) batch stage, which bounds peak memory: at B = 512,
 K = 64, i = 784 one (B, K, i) tensor is already 100 MB.
 
+``predict_batch_sparse`` is the shortlisted twin: an O(K·i) diag proxy on
+the known-block marginal ranks the slots per point and the exact work runs
+on the C shortlisted rows; when C covers the pool it runs the dense block
+body itself, so it is bit-identical to ``predict_batch`` by construction.
+``predict_batch_routed`` is the one dense/sparse switch the runtime calls.
+
 Empty-mixture contract: every public entry point checks ``n_active`` on the
 host and raises instead of returning the silent zero vector an empty pool
-would give.  The shortlisted twin and the covariance-form ``predict_ref*``
-wait for a later slice.
+would give.  The covariance-form ``predict_ref*`` and the measured routing
+(the reference's cost table) wait for a later slice.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import figmn
+from repro_torch.core import figmn, shortlist
 from repro_torch.core.types import FIGMNConfig, FIGMNState, Tensor
 
 _LOG_2PI = 1.8378770664093453
@@ -159,6 +165,104 @@ def predict(cfg: FIGMNConfig, state: FIGMNState, x_in, idx_out) -> Tensor:
     """Reconstruct x[idx_out] from x_in (the remaining dims, in order)."""
     x_in = torch.as_tensor(x_in, dtype=cfg.dtype, device=state.device)
     return predict_batch(cfg, state, x_in[None, :], idx_out)[0]
+
+
+def predict_batch_routed(cfg: FIGMNConfig, state: FIGMNState, xs_in,
+                         idx_out, c: int = 0, return_var: bool = False,
+                         factor_cache: Optional["FactorCache"] = None,
+                         epoch: Optional[int] = None):
+    """THE dense/sparse conditional dispatch: c > 0 routes through the
+    shortlisted block, c <= 0 through the dense one.  ``factor_cache`` +
+    ``epoch`` reuse the factor stage for every read against one epoch."""
+    require_nonempty(state)
+    xs_in = torch.as_tensor(xs_in, dtype=cfg.dtype, device=state.device)
+    targets = _as_targets(idx_out)
+    if xs_in.shape[0] == 0:
+        return _empty_result(cfg, len(targets), return_var, state.device)
+    factors = (factor_cache.get(cfg, state, targets, epoch)
+               if factor_cache is not None and epoch is not None else None)
+    if c > 0:
+        return predict_batch_sparse(cfg, state, xs_in, targets, c=c,
+                                    return_var=return_var, factors=factors)
+    return predict_batch(cfg, state, xs_in, targets, return_var=return_var,
+                         factors=factors)
+
+
+def _sparse_block(cfg: FIGMNConfig, f: _CondFactors, ni: int, sp: Tensor,
+                  active: Tensor, xb: Tensor, c: int, bound,
+                  return_var: bool) -> Tensor:
+    """The shortlisted eq. 27 block body: the bound pass on the known-block
+    marginal, top-C, and the exact work on the (B, C) pairs.  The (B, C)
+    Schur-complement products go through ``shortlist.gathered_products``
+    (the ``gathered_matvec`` kernel on the card)."""
+    diag_in, bias, dmu, m2, mu2 = bound
+    if cfg.shortlist_mode == "euclid":
+        proxy = -0.5 * (torch.sum(xb * xb, dim=1)[:, None]
+                        - 2.0 * (xb @ f.mu_in.T) + mu2[None, :])
+    else:
+        d2_diag = (xb * xb) @ diag_in.T - 2.0 * (xb @ dmu.T) + m2[None, :]
+        proxy = bias[None, :] - 0.5 * d2_diag
+    proxy = torch.where(active[None, :], proxy,
+                        torch.full_like(proxy, -torch.inf))
+    idx = shortlist.topc(proxy, c)                        # (B, C)
+    diff = xb[:, None, :] - f.mu_in[idx]                  # (B, C, i)
+    xhat = f.mu_out[idx] - torch.einsum("bcoi,bci->bco", f.winv_z[idx],
+                                        diff)
+    t = shortlist.gathered_products(f.prec_in, diff, idx)
+    d2 = torch.einsum("bci,bci->bc", diff, t)
+    logp = -0.5 * (ni * _LOG_2PI + f.logdet_in[idx] + d2)
+    post = figmn.masked_posteriors(logp, sp[idx], active[idx])
+    mean = torch.einsum("bc,bco->bo", post, xhat)
+    if not return_var:
+        return mean
+    ex2 = torch.einsum("bc,bco->bo", post, f.wdiag_inv[idx] + xhat * xhat)
+    return torch.stack([mean, torch.clamp_min(ex2 - mean * mean, 0.0)],
+                       dim=1)
+
+
+def predict_batch_sparse(cfg: FIGMNConfig, state: FIGMNState, xs_in,
+                         idx_out, c: Optional[int] = None,
+                         block_b: int = 512, return_var: bool = False,
+                         factors: Optional[_CondFactors] = None):
+    """(B, o) conditional means with a top-C component shortlist.
+
+    An O(K·i) bound pass on the known-block marginal (diag of the
+    Schur-complement precision, the marginal logdet and the log-prior)
+    ranks the slots per point; eq. 27 runs on the C shortlisted rows only.
+    With C covering the pool the shortlist would be the identity
+    permutation, so the dense block body runs instead: bit-identical to
+    ``predict_batch`` at any batch size.
+    """
+    require_nonempty(state)
+    kpool = int(state.active.shape[0])
+    c = min(int(cfg.shortlist_c if c is None else c), kpool)
+    if c <= 0:
+        raise ValueError("predict_batch_sparse needs a positive shortlist "
+                         "width (cfg.shortlist_c or the c argument)")
+    xs_in = torch.as_tensor(xs_in, dtype=cfg.dtype, device=state.device)
+    targets = _as_targets(idx_out)
+    if xs_in.shape[0] == 0:
+        return _empty_result(cfg, len(targets), return_var, state.device)
+    f = factors if factors is not None else _factors(cfg, state, targets)
+    ni = f.mu_in.shape[1]
+    if c >= kpool:
+        def block(xb: Tensor) -> Tensor:
+            return _dense_block(f, ni, state.sp, state.active, xb,
+                                return_var)
+    else:
+        diag_in = torch.diagonal(f.prec_in, dim1=1, dim2=2)   # (K, i)
+        dmu = diag_in * f.mu_in
+        bound = (diag_in,
+                 -0.5 * f.logdet_in
+                 + torch.log(torch.clamp_min(state.sp, 1e-30)),
+                 dmu, torch.sum(dmu * f.mu_in, dim=1),
+                 torch.sum(f.mu_in * f.mu_in, dim=1))
+
+        def block(xb: Tensor) -> Tensor:
+            return _sparse_block(cfg, f, ni, state.sp, state.active, xb, c,
+                                 bound, return_var)
+
+    return _unstack_var(_map_blocks(block, xs_in, block_b), return_var)
 
 
 class FactorCache:

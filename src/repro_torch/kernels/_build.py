@@ -34,7 +34,8 @@ ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-std=c++17", "-O3", ARCH, "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-LAUNCHES = {"matvec2": 0, "rank2_apply": 0, "figmn_stream": 0}
+LAUNCHES = {"matvec2": 0, "rank2_apply": 0, "figmn_stream": 0,
+            "gathered_matvec": 0, "scatter_apply": 0, "mahalanobis": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -45,6 +46,9 @@ _SIGNATURES = {
     "figmn_stream_smem_bytes": ([_I, _I], ctypes.c_longlong),
     "figmn_stream": ([_P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P,
                       _P, _P, _I, _I, _P], _I),
+    "figmn_gathered_matvec": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "figmn_scatter_apply": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
+    "figmn_mahalanobis": ([_P, _P, _P, _I, _I, _P], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -155,6 +159,31 @@ def check_tensor(name: str, t: Optional[torch.Tensor],
         raise ValueError(f"{name} is on {t.device}, want {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_index(name: str, t: torch.Tensor, shape: Tuple[int, ...],
+                device: torch.device) -> None:
+    """What every kernel takes as an index or mask vector: int32, this
+    shape, this device, contiguous."""
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, want {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+# A kernel that keeps one D-vector in shared memory stays within the 48 KB
+# a block gets without opting in.
+SMEM_VECTOR_MAX_D = 48 * 1024 // 4
+
+
+def check_smem_vector(d: int) -> None:
+    if d > SMEM_VECTOR_MAX_D:
+        raise ValueError(f"D = {d} exceeds the {SMEM_VECTOR_MAX_D} floats a "
+                         "block holds in shared memory without opting in")
 
 
 def on_cuda(device: torch.device) -> bool:

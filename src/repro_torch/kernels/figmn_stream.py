@@ -54,10 +54,7 @@ def figmn_stream(xs: Tensor, mu: Tensor, lam: Tensor, logdet: Tensor,
     for name, t, shape in (("mu", mu, (k, d)), ("lam", lam, (k, d, d)),
                            ("logdet", logdet, (k,)), ("sp", sp, (k,))):
         _build.check_tensor(name, t, shape, dev)
-    if active.dtype != torch.int32 or tuple(active.shape) != (k,) \
-            or active.device != dev or not active.is_contiguous():
-        raise ValueError("active must be a contiguous (K,) int32 tensor on "
-                         f"{dev}")
+    _build.check_index("active", active, (k,), dev)
     if not _build.on_cuda(dev):
         return figmn_stream_plain(xs, mu, lam, logdet, sp, active, thresh,
                                   dim)

@@ -1,4 +1,4 @@
-"""Public wrappers around the CUDA update kernels (``backend="pallas"``).
+"""Public wrappers around the CUDA kernels (``backend="pallas"``).
 
 Counterpart of ``repro/kernels/ops.py``, without its padding of D to 128
 lanes: that is a TPU layout rule, and at D = 794 it would copy the whole
@@ -16,9 +16,15 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import figmn_sparse, mahalanobis
 from repro_torch.kernels.figmn_update import matvec2, rank2_apply
 
 Tensor = torch.Tensor
+
+
+def mahalanobis_sq(diff: Tensor, lam: Tensor) -> Tensor:
+    """(K, D), (K, D, D) → (K,) squared Mahalanobis distances."""
+    return mahalanobis.mahalanobis(diff, lam)
 
 
 def matvec(lam: Tensor, diff: Tensor) -> Tensor:
@@ -75,3 +81,33 @@ def fused_apply(lam: Tensor, logdet: Tensor, y: Tensor, d2: Tensor,
     c1 = beta / one_m_w if update_mode == "exact" else -beta
     lam_new = rank2_apply(lam, y, None, inv1mw, c1, None, out=lam)
     return lam_new, logdet + dlogdet
+
+
+def gathered_matvec(lam: Tensor, diff_sel: Tensor, idx: Tensor) -> Tensor:
+    """y_c = Λ[idx_c]·diff_c for the C shortlisted rows (reads C·D², not
+    K·D², of Λ).  idx is cast to int32 here."""
+    return figmn_sparse.gathered_matvec(lam, diff_sel,
+                                        idx.to(torch.int32).contiguous())
+
+
+def scatter_fused_apply(lam: Tensor, logdet: Tensor, idx: Tensor,
+                        y_sel: Tensor, d2_sel: Tensor, w_sel: Tensor,
+                        dim: int, update_mode: str = "paper"
+                        ) -> Tuple[Tensor, Tensor]:
+    """Shortlisted fused update: rows idx of Λ get the rank-one apply from
+    the shared matvec y (``core.figmn.fused_step_coeffs``) in place; the
+    K − C other rows are not touched.  logdet gets Δlog|C| added at idx in
+    place (``index_add_``; the indices are unique).  Returns (Λ', logdet').
+
+    Coefficients: exact Λ' = (Λ − β yyᵀ)/(1−ω) ⇒ a = 1/(1−ω), b = β/(1−ω);
+    paper Λ' = Λ/(1−ω) + β yyᵀ ⇒ a = 1/(1−ω), b = −β.
+    """
+    from repro_torch.core.figmn import fused_step_coeffs
+    beta, dlogdet = fused_step_coeffs(d2_sel, w_sel, dim, update_mode)
+    inv1mw = 1.0 / (1.0 - w_sel)
+    b = beta * inv1mw if update_mode == "exact" else -beta
+    coefs = torch.stack([inv1mw, b], dim=1)                 # (C, 2)
+    idx32 = idx.to(torch.int32).contiguous()
+    lam_new = figmn_sparse.scatter_apply(lam, y_sel, coefs, idx32)
+    logdet_new = logdet.index_add_(0, idx32, dlogdet)
+    return lam_new, logdet_new

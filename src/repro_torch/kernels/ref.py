@@ -36,6 +36,30 @@ def figmn_matvecs_ref(lam: Tensor, e_star: Tensor,
     return matvec_ref(lam, e_star), matvec_ref(lam, dmu)
 
 
+def gathered_matvec_ref(lam: Tensor, diff: Tensor, idx: Tensor) -> Tensor:
+    """y_c = Λ[idx_c]·diff_c for the C shortlisted rows.
+
+    lam: (K, D, D), diff: (C, D), idx: (C,) integer → (C, D).  Gathers the
+    C rows (C·D² floats) before the product; the kernel does not.
+    """
+    return torch.einsum("kde,ke->kd", lam[idx.long()], diff)
+
+
+def scatter_apply_ref(lam: Tensor, y: Tensor, coefs: Tensor,
+                      idx: Tensor) -> Tensor:
+    """Λ[idx_c] ← Λ[idx_c]·a_c − (b_c·y_c,i)·y_c,j IN PLACE, in the TPU
+    kernel's association; the K − C other rows are not touched.
+
+    lam: (K, D, D); y: (C, D); coefs: (C, 2) = (a, b); idx: (C,) unique
+    integers.  Returns ``lam``.
+    """
+    i = idx.long()
+    a, b = coefs[:, 0], coefs[:, 1]
+    rows = lam[i] * a[:, None, None] \
+        - (b[:, None] * y)[:, :, None] * y[:, None, :]
+    return lam.index_copy_(0, i, rows)
+
+
 def rank2_apply_ref(lam: Tensor, y: Tensor, yb: Optional[Tensor],
                     inv1mw: Tensor, c1: Tensor,
                     c2: Optional[Tensor]) -> Tensor:

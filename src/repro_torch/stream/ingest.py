@@ -10,8 +10,12 @@ which body consumes a chunk:
            (K, D, D) working set stays in one block's shared memory for the
            chunk.  Creation events are no-ops inside it.  (The name is the
            reference's; on the card the resident memory is shared memory.)
-
-The top-C shortlist body ("sparse") waits for a later slice.
+  "sparse" — the top-C shortlist body ``core.shortlist.fit_sparse``: per
+           point an O(K·D) bound pass selects C components and the exact
+           O(D²) work runs on those C rows (the ``gathered_matvec`` and
+           ``scatter_apply`` kernels with ``backend="pallas"``).  Creation
+           and pruning inline, no host sync per point; bit-identical to
+           "scan" (plain backend) when C ≥ active K.
 """
 from __future__ import annotations
 
@@ -20,12 +24,12 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import figmn
+from repro_torch.core import figmn, shortlist
 from repro_torch.core.types import (FIGMNConfig, FIGMNState, Tensor,
                                     gate_threshold, resolve_device)
 from repro_torch.kernels import _build, figmn_stream
 
-PATHS = ("auto", "scan", "vmem")
+PATHS = ("auto", "scan", "vmem", "sparse")
 
 
 def _resident_fits(cfg: FIGMNConfig, device: torch.device,
@@ -38,9 +42,12 @@ def _resident_fits(cfg: FIGMNConfig, device: torch.device,
 
 def select_path(cfg: FIGMNConfig, *, requested: str = "auto", device=None,
                 smem_limit: Optional[int] = None) -> str:
-    """Choose the per-chunk path ("scan" | "vmem").
+    """Choose the per-chunk path ("scan" | "vmem" | "sparse").
 
-    On a CUDA device "auto" picks the resident kernel when the update mode
+    "auto" picks the shortlist body whenever the config enables one
+    (cfg.shortlist_c > 0), as the reference does; a forced "sparse" needs
+    cfg.shortlist_c > 0 and raises otherwise.  Else, on a CUDA device,
+    "auto" picks the resident kernel when the update mode
     is the PSD-safe "exact" one (the kernel's only mode) and its working
     set (``figmn_stream.smem_bytes``: K·D²·4 bytes plus the small state)
     fits the per-block opt-in shared memory queried from the device
@@ -50,8 +57,9 @@ def select_path(cfg: FIGMNConfig, *, requested: str = "auto", device=None,
     """
     if requested == "sparse" or (requested == "auto"
                                  and cfg.shortlist_c > 0):
-        raise NotImplementedError(
-            "the top-C shortlist path is not ported yet")
+        if cfg.shortlist_c <= 0:
+            raise ValueError("path 'sparse' requires cfg.shortlist_c > 0")
+        return "sparse"
     if requested not in PATHS:
         raise ValueError(f"unknown path {requested!r}")
     device = resolve_device(device)
@@ -179,6 +187,14 @@ def fit_chunk_scan(cfg: FIGMNConfig, state: FIGMNState, xc: Tensor,
                    do_prune: bool) -> FIGMNState:
     """Reference path: ``figmn.fit`` over the chunk (consumes the state)."""
     return figmn.fit(cfg, state, xc, do_prune=do_prune)
+
+
+def fit_chunk_sparse(cfg: FIGMNConfig, state: FIGMNState, xc: Tensor,
+                     do_prune: bool) -> FIGMNState:
+    """Shortlist path: ``shortlist.fit_sparse`` over the chunk (consumes
+    the state; bit-identical to "scan" with the plain backend when
+    cfg.shortlist_c ≥ active K)."""
+    return shortlist.fit_sparse(cfg, state, xc, do_prune=do_prune)
 
 
 def fit_chunk_vmem(cfg: FIGMNConfig, state: FIGMNState, xc: Tensor

@@ -3,7 +3,10 @@
 
 Chunked ingestion (ingest.py) and per-chunk telemetry (telemetry.py) over
 one mixture state on one device.  Invariant (tested): ``ingest`` over any
-chunking equals ONE ``core.figmn.fit`` over the concatenated stream.
+chunking equals ONE ``core.figmn.fit`` over the concatenated stream (ONE
+``core.shortlist.fit_sparse`` on the "sparse" path).  Reads follow the
+resolved path: a shortlisted runtime scores and predicts through the
+shortlisted reads, a dense one through the dense reads.
 
 This slice ports the main path only: the lifecycle, drift, checkpoint,
 cost-table, telemetry-anomaly and chunk-retry options of the reference
@@ -18,7 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import figmn, inference
+from repro_torch.core import figmn, inference, shortlist
 from repro_torch.core.types import (FIGMNConfig, FIGMNState, Tensor,
                                     resolve_device)
 from repro_torch.stream import ingest, telemetry
@@ -29,7 +32,10 @@ class RuntimeConfig:
     """Orchestration knobs (the FIGMN hyper-parameters live in FIGMNConfig).
 
     chunk:        micro-batch size (points per dispatch).
-    path:         "auto" | "scan" | "vmem" (see ``ingest.select_path``).
+    path:         "auto" | "scan" | "vmem" | "sparse" (see
+                  ``ingest.select_path``; "sparse", the top-C shortlist
+                  body, needs cfg.shortlist_c > 0 and is what "auto" picks
+                  whenever the config enables a shortlist).
     device:       the torch device the state lives on; None means CUDA
                   (and raises where there is no card).
     on_nonfinite: NaN/Inf row policy of ``ingest.finite_guard``: "drop"
@@ -95,6 +101,9 @@ class StreamRuntime:
         if path == "vmem":
             self.state, nacc = ingest.fit_chunk_vmem(self.cfg, self.state, xc)
             self._accepted_dev += nacc                  # stays on the device
+        elif path == "sparse":
+            self.state = ingest.fit_chunk_sparse(
+                self.cfg, self.state, xc, do_prune=self.cfg.spmin > 0)
         else:
             self.state = ingest.fit_chunk_scan(
                 self.cfg, self.state, xc, do_prune=self.cfg.spmin > 0)
@@ -121,18 +130,22 @@ class StreamRuntime:
     # ------------------------------------------------------------------
 
     def score(self, xs) -> Tensor:
-        """(N,) mixture log-densities under the current state (read-only)."""
+        """(N,) mixture log-densities under the current state (read-only).
+        On the "sparse" path through ``shortlist.score_batch_sparse`` (a
+        (B, K) bound pass and a (B, C) exact pass), else the dense sweep."""
         xs = torch.as_tensor(xs, dtype=self.cfg.dtype, device=self.device)
+        if self.path == "sparse":
+            return shortlist.score_batch_sparse(self.cfg, self.state, xs)
         return ingest.score_batch(self.cfg, self.state, xs)
 
     def predict(self, xs, targets, return_var: bool = False):
         """(N, o) eq. 27 conditional means of ``targets`` given the rest
-        (read-only; raises on an empty pool).  The factor stage is cached
-        per state epoch.  return_var=True also returns the (N, o)
-        conditional variance as a (mean, var) pair."""
-        inference.require_nonempty(self.state)
-        factors = self.factor_cache.get(self.cfg, self.state, targets,
-                                        self.state_epoch)
-        return inference.predict_batch(self.cfg, self.state, xs, targets,
-                                       return_var=return_var,
-                                       factors=factors)
+        (read-only; raises on an empty pool), shortlisted on the "sparse"
+        path.  The factor stage is cached per state epoch.
+        return_var=True also returns the (N, o) conditional variance as a
+        (mean, var) pair."""
+        return inference.predict_batch_routed(
+            self.cfg, self.state, xs, targets,
+            c=self.cfg.shortlist_c if self.path == "sparse" else 0,
+            return_var=return_var, factor_cache=self.factor_cache,
+            epoch=self.state_epoch)

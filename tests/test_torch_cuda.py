@@ -9,15 +9,21 @@ Tolerances: a matvec's two summation orders differ by at most 2·D·u·Σ|terms|
 (u = 2⁻²⁴); rank2_apply rounds exactly as its plain version (same
 association, no multiply-add contraction), so 4 ulps of the largest entry;
 the resident kernel over a chunk uses tests/test_figmn_stream_kernel.py's
-tolerances (1e-3).
+tolerances (1e-3).  gathered_matvec is a matvec (the same bound);
+mahalanobis nests two such sums (γ_D on each, on precision-like Λ);
+scatter_apply equals its plain version bit for bit and leaves the K − C
+other rows bit-equal.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import figmn
+from repro_torch.core import figmn, shortlist
 from repro_torch.core.types import FIGMNConfig, gate_threshold
-from repro_torch.kernels import _build, figmn_stream, figmn_update, ref
+from repro_torch.kernels import (_build, figmn_sparse, figmn_stream,
+                                 figmn_update, mahalanobis, ref)
 
 EPS32 = 2.0 ** -24
 
@@ -89,3 +95,114 @@ def test_stream_kernel_refuses_a_pool_beyond_shared_memory(cuda):
             torch.zeros((k, d, d), device=cuda), z[:, 0].contiguous(),
             z[:, 0].contiguous(), torch.zeros(k, dtype=torch.int32,
                                               device=cuda), 1.0, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,c", [(10, 6, 3), (16, 130, 512), (64, 794, 8)])
+def test_sparse_kernels_match_plain(cuda, k, d, c):
+    """c = 512 pairs with repeats stands for the read path's flattened
+    (point, slot) pairs; the scatter takes unique indices only."""
+    g = torch.Generator(device=cuda).manual_seed(d + c)
+    lam = torch.randn((k, d, d), generator=g, device=cuda)
+    diff = torch.randn((c, d), generator=g, device=cuda)
+    idx = torch.randint(0, k, (c,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    before = _build.LAUNCHES["gathered_matvec"]
+    y = figmn_sparse.gathered_matvec(lam, diff, idx)
+    assert _build.LAUNCHES["gathered_matvec"] == before + 1
+    tol = 2 * d * EPS32 * float(torch.einsum(
+        "kde,ke->kd", lam[idx.long()].abs(), diff.abs()).max())
+    assert float((y - ref.gathered_matvec_ref(lam, diff, idx))
+                 .abs().max()) <= tol
+    cu = min(c, k)
+    uidx = torch.randperm(k, generator=g, device=cuda)[:cu].to(torch.int32)
+    coefs = torch.rand((cu, 2), generator=g, device=cuda) + 0.5
+    got = figmn_sparse.scatter_apply(lam.clone(), y[:cu].contiguous(), coefs,
+                                     uidx)
+    want = ref.scatter_apply_ref(lam.clone(), y[:cu], coefs, uidx)
+    assert torch.equal(got, want)
+    rest = torch.ones(k, dtype=torch.bool, device=cuda)
+    rest[uidx.long()] = False
+    assert torch.equal(got[rest], lam[rest])
+
+
+def _precision(k, d, g, device):
+    """Precision matrices as the learner keeps them: positive diagonal
+    plus a low-rank PSD part, so d² carries the sum and a dropped row of
+    Λ shows above the rounding bound."""
+    q = torch.randn((k, d, 8), generator=g, device=device) / d ** 0.5
+    u = 0.5 + torch.rand((k, d), generator=g, device=device)
+    return torch.diag_embed(u) + q @ q.transpose(1, 2)
+
+
+def mahalanobis_tol(diff, lam):
+    """(K,) bound on |kernel − plain| for d² = Σ_r diff_r·(Λ_r·diff): each
+    inner sum errs by at most γ_D·Σ_c|Λ_rc||diff_c|, the outer by γ_D·
+    Σ_r|diff_r·s_r|; two orders differ by at most twice the sum."""
+    d = diff.shape[1]
+    gamma = (d + 1) * EPS32 / (1 - (d + 1) * EPS32)
+    inner = torch.einsum("kd,kde,ke->k", diff.abs(), lam.abs(), diff.abs())
+    s = torch.einsum("kde,ke->kd", lam, diff)
+    return 2 * gamma * (inner + (diff * s).abs().sum(dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d", [(4, 5), (8, 130), (64, 794)])
+def test_mahalanobis_kernel_matches_plain_and_repeats(cuda, k, d):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    lam = _precision(k, d, g, cuda)
+    diff = torch.randn((k, d), generator=g, device=cuda)
+    got = mahalanobis.mahalanobis(diff, lam)
+    tol = mahalanobis_tol(diff, lam)
+    want = ref.mahalanobis_ref(diff, lam)
+    assert bool(((got - want).abs() <= tol).all())
+    # the bound is tight enough that dropping a row of mean weight (d²/D)
+    # from any Λ_k, let alone a warp's share of rows, would break it
+    assert bool((tol < want / d).all())
+    assert torch.equal(got, mahalanobis.mahalanobis(diff, lam))
+
+
+@pytest.mark.cuda
+def test_shortlisted_reads_refuse_float64_on_the_card(cuda):
+    """On the card the shortlisted reads always take the float32 kernel:
+    a float64 state raises, as on the write path, and never falls back
+    to building the (B, C, D, D) gather."""
+    k, d, c = 6, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(1)
+    lam = _precision(k, d, g, cuda).double()
+    diff = torch.randn((4, c, d), generator=g, device=cuda,
+                       dtype=torch.float64)
+    idx = torch.randint(0, k, (4, c), generator=g, device=cuda)
+    with pytest.raises(TypeError, match="float32"):
+        shortlist.gathered_products(lam, diff, idx)
+
+
+@pytest.mark.cuda
+def test_fit_sparse_on_the_card(cuda):
+    """The kernel backend against the plain backend, and no host sync
+    inside ``fit_sparse``."""
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 6.0, (4, 24))
+    x = torch.from_numpy((centers[rng.integers(0, 4, 300)]
+                          + rng.normal(0, 1.0, (300, 24))).astype(np.float32)
+                         ).to(cuda)
+    cfg = FIGMNConfig(kmax=12, dim=24, beta=0.1, delta=1.0, vmin=1e9,
+                      spmin=0.0, update_mode="exact", backend="pallas",
+                      shortlist_c=3, sigma_ini=figmn.sigma_from_data(x, 1.0))
+    state = figmn.init_state(cfg, cuda)       # (reads log|C| on the host)
+    before = dict(_build.LAUNCHES)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = shortlist.fit_sparse(cfg, state, x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert _build.LAUNCHES["gathered_matvec"] == before["gathered_matvec"] \
+        + 300
+    assert _build.LAUNCHES["scatter_apply"] == before["scatter_apply"] + 300
+    want = shortlist.fit_sparse(dataclasses.replace(cfg, backend="jnp"),
+                                figmn.init_state(cfg, cuda), x)
+    assert int(got.n_created) == int(want.n_created)
+    m = want.active
+    torch.testing.assert_close(got.lam[m], want.lam[m], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(got.mu[m], want.mu[m], rtol=1e-4, atol=1e-4)

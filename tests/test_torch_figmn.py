@@ -20,25 +20,45 @@ from repro.core.types import FIGMNConfig as JConfig
 from repro.core.types import chi2_quantile as jchi2
 from repro_torch import interop
 from repro_torch.core import figmn
-from repro_torch.core.types import chi2_quantile, gate_threshold
+from repro_torch.core.types import chi2_quantile, gate_threshold, ndtri32
 
 FIELDS = interop.STATE_FIELDS
 
-# torch.special.ndtri and jax.scipy.special.ndtri round differently on
-# about one float32 input in ten (by one ulp of z), which the cube in
-# Wilson–Hilferty grows to a few ulps of the threshold.  These are the known
-# cases, as (port − reference) in ulps of the reference; every other pair
-# of the grid is bit-equal, and every parity stream below uses an equal one.
-KNOWN_ULPS = {(2, 0.1): -2, (8, 0.1): -5}
+CHI2_DOFS = [1, 2, 3, 5, 8, 16, 32, 64, 100, 256, 794, 1000]
+CHI2_BETAS = [0.3, 0.2, 0.1, 0.05, 0.02, 0.01, 0.005, 0.001, 1e-4]
 
 
-@pytest.mark.parametrize("dof", [2, 3, 5, 8, 16, 32, 794])
-@pytest.mark.parametrize("beta", [0.1, 0.05, 0.01, 0.001])
+@pytest.mark.parametrize("dof", CHI2_DOFS)
+@pytest.mark.parametrize("beta", CHI2_BETAS)
 def test_chi2_quantile_matches_reference_float32(dof, beta):
+    """The gate threshold is the reference's float32 value bit for bit."""
     want = np.float32(jchi2(dof, 1.0 - beta))
     got = np.float32(chi2_quantile(dof, 1.0 - beta).numpy())
-    ulps = (float(got) - float(want)) / float(np.spacing(want))
-    assert ulps == KNOWN_ULPS.get((dof, beta), 0)
+    assert got.view(np.uint32) == want.view(np.uint32), \
+        (float(got) - float(want)) / float(np.spacing(want))
+
+
+def test_chi2_quantile_matches_reference_on_random_pairs():
+    rng = np.random.default_rng(0)
+    for _ in range(200):
+        dof = int(rng.integers(1, 1200))
+        beta = float(10 ** rng.uniform(-5, np.log10(0.5)))
+        want = np.float32(jchi2(dof, 1.0 - beta))
+        got = np.float32(chi2_quantile(dof, 1.0 - beta).numpy())
+        assert got.view(np.uint32) == want.view(np.uint32), (dof, beta)
+
+
+def test_ndtri32_matches_reference_ndtri():
+    """The port's float32 Φ⁻¹ against jax.scipy.special.ndtri over both
+    rational forms, the complement and the z ≥ 8 tail."""
+    rng = np.random.default_rng(1)
+    p = np.concatenate([rng.uniform(0, 1, 400),
+                        10.0 ** rng.uniform(-30, -1, 200),
+                        1 - 10.0 ** rng.uniform(-7, -1, 200),
+                        [0.0, 1.0, 0.5]]).astype(np.float32)
+    want = np.asarray(jax.scipy.special.ndtri(jnp.asarray(p)))
+    got = np.array([ndtri32(v) for v in p], np.float32)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 def test_chi2_quantile_beta_zero_is_inf():

@@ -19,7 +19,9 @@ FORBIDDEN = re.compile(
 def test_import_pulls_in_no_jax():
     code = ("import sys; import repro_torch, repro_torch.api, "
             "repro_torch.stream, repro_torch.interop, repro_torch.kernels.ops, "
-            "repro_torch.kernels.figmn_stream, repro_torch.data.gmm_streams; "
+            "repro_torch.kernels.figmn_stream, repro_torch.data.gmm_streams, "
+            "repro_torch.core.shortlist, repro_torch.kernels.figmn_sparse, "
+            "repro_torch.kernels.mahalanobis; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "assert not bad, bad")

@@ -26,7 +26,8 @@ from repro.kernels import figmn_stream as jstream
 from repro.kernels import figmn_update as jupdate
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import _build, figmn_stream, figmn_update, ops, ref
+from repro_torch.kernels import (_build, figmn_sparse, figmn_stream,
+                                 figmn_update, mahalanobis, ops, ref)
 
 SHAPES = [(1, 4), (4, 5), (3, 130), (2, 257)]
 
@@ -238,6 +239,111 @@ def test_wrappers_check_inputs_and_count_no_cpu_launch():
         figmn_update.matvec2(_t(lam).to("meta"), _t(e).to("meta"))
     with pytest.raises(ValueError):
         figmn_update.rank2_apply(_t(lam), _t(e), _t(e), _t(w), _t(w), None)
+
+
+@pytest.mark.parametrize("k,d,c", [(10, 6, 3), (5, 130, 4), (4, 257, 4)])
+def test_gathered_matvec_plain_matches_reference_ops(k, d, c):
+    """The port's gathered matvec against the Pallas kernel in interpret
+    mode (as tests/test_shortlist.py runs it), at D not a multiple of 128."""
+    rng = np.random.default_rng(k * 31 + d)
+    lam = _psd(rng, k, d)
+    diff = rng.normal(0, 1, (c, d)).astype(np.float32)
+    idx = rng.permutation(k)[:c].astype(np.int32)
+    want = jops.gathered_matvec(jnp.asarray(lam), jnp.asarray(diff),
+                                jnp.asarray(idx), interpret=True)
+    got = ops.gathered_matvec(_t(lam), _t(diff), torch.from_numpy(idx))
+    _close(got, want, 2e-5, 2e-4 * d)
+    assert torch.equal(got, figmn_sparse.gathered_matvec(
+        _t(lam), _t(diff), torch.from_numpy(idx)))
+
+
+@pytest.mark.parametrize("k,d,c", [(10, 6, 3), (5, 130, 4)])
+@pytest.mark.parametrize("mode", ["exact", "paper"])
+def test_scatter_fused_apply_plain_matches_reference_ops(k, d, c, mode):
+    """The in-place shortlisted update against the aliased Pallas kernel in
+    interpret mode: the C rows and their logdet to the tolerance of
+    test_ops_wrappers_match_reference_ops (the paper-mode coefficient
+    cancels, and XLA contracts its multiply-adds), the K − C other rows
+    bit-equal, and a gated ω = 0 row a bit-exact no-op."""
+    rng = np.random.default_rng(k * 17 + d + (mode == "paper"))
+    lam = _psd(rng, k, d)
+    logdet = rng.normal(0, 1, k).astype(np.float32)
+    idx = rng.permutation(k)[:c].astype(np.int32)
+    diff = rng.normal(0, 1, (c, d)).astype(np.float32)
+    y = np.einsum("kde,ke->kd", lam[idx], diff).astype(np.float32)
+    d2 = np.einsum("kd,kd->k", diff, y).astype(np.float32)
+    w = rng.uniform(0.05, 0.4, c).astype(np.float32)
+    w[0] = 0.0                                     # a gated (failed) row
+    J = jnp.asarray
+    wlam, wld = jops.scatter_fused_apply(J(lam), J(logdet), J(idx), J(y),
+                                         J(d2), J(w), d, mode,
+                                         interpret=True)
+    tlam, tld = _t(lam), _t(logdet)
+    glam, gld = ops.scatter_fused_apply(tlam, tld, torch.from_numpy(idx),
+                                        _t(y), _t(d2), _t(w), d, mode)
+    assert glam.data_ptr() == tlam.data_ptr()      # in place
+    scale = float(np.abs(lam).max())
+    _close(glam, wlam, 0, 5e-5 * scale)
+    _close(gld, wld, 0, 1e-4)
+    untouched = np.setdiff1d(np.arange(k), idx)
+    np.testing.assert_array_equal(glam.numpy()[untouched], lam[untouched])
+    np.testing.assert_array_equal(gld.numpy()[untouched], logdet[untouched])
+    np.testing.assert_array_equal(glam.numpy()[idx[0]], lam[idx[0]])
+    assert float(gld[idx[0]]) == float(logdet[idx[0]])
+
+
+def test_scatter_apply_plain_keeps_the_pallas_association():
+    rng = np.random.default_rng(3)
+    k, d, c = 6, 9, 2
+    lam = _psd(rng, k, d)
+    y = rng.normal(0, 1, (c, d)).astype(np.float32)
+    coefs = rng.uniform(0.5, 1.5, (c, 2)).astype(np.float32)
+    idx = np.array([4, 1], np.int32)
+    got = figmn_sparse.scatter_apply(_t(lam), _t(y), _t(coefs),
+                                     torch.from_numpy(idx))
+    want = lam.copy()
+    for i, kk in enumerate(idx):
+        want[kk] = lam[kk] * coefs[i, 0] \
+            - (coefs[i, 1] * y[i])[:, None] * y[i][None, :]
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("k,d", [(1, 4), (4, 5), (3, 130), (2, 256)])
+def test_mahalanobis_plain_matches_reference_ops(k, d):
+    """The port's mahalanobis_sq against the Pallas kernel in interpret mode
+    behind repro.kernels.ops (tests/test_kernels.py's tolerance)."""
+    rng = np.random.default_rng(k * 100 + d)
+    lam = _psd(rng, k, d)
+    diff = rng.normal(0, 1, (k, d)).astype(np.float32)
+    want = jops.mahalanobis_sq(jnp.asarray(diff), jnp.asarray(lam),
+                               interpret=True)
+    got = ops.mahalanobis_sq(_t(diff), _t(lam))
+    _close(got, want, 1e-5, 1e-5 * d)
+    assert torch.equal(got, mahalanobis.mahalanobis(_t(diff), _t(lam)))
+
+
+def test_sparse_wrappers_check_inputs_and_count_no_cpu_launch():
+    rng = np.random.default_rng(4)
+    lam = _t(_psd(rng, 5, 6))
+    diff = _t(rng.normal(0, 1, (2, 6)))
+    idx = torch.tensor([3, 1], dtype=torch.int32)
+    coefs = torch.ones((2, 2))
+    before = dict(_build.LAUNCHES)
+    figmn_sparse.gathered_matvec(lam, diff, idx)
+    figmn_sparse.scatter_apply(lam.clone(), diff, coefs, idx)
+    mahalanobis.mahalanobis(diff, lam[:2].contiguous())
+    assert _build.LAUNCHES == before          # plain versions launch nothing
+    with pytest.raises(TypeError, match="int32"):
+        figmn_sparse.gathered_matvec(lam, diff, idx.long())
+    with pytest.raises(ValueError):
+        figmn_sparse.gathered_matvec(lam, diff, idx[:1])
+    with pytest.raises(ValueError):
+        figmn_sparse.scatter_apply(lam, diff, coefs[:, :1].contiguous(), idx)
+    with pytest.raises(TypeError):
+        mahalanobis.mahalanobis(diff.double(), lam[:2].double())
+    with pytest.raises(ValueError):
+        figmn_sparse.gathered_matvec(lam.to("meta"), diff.to("meta"),
+                                     idx.to("meta"))
 
 
 def test_resident_working_set_formula():

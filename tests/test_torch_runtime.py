@@ -244,8 +244,6 @@ def test_unported_parts_raise():
                  lambda: Mixture.load(mix.spec)):
         with pytest.raises(NotImplementedError):
             call()
-    with pytest.raises(NotImplementedError):
-        select_path(dataclasses.replace(tcfg, shortlist_c=2), device="cpu")
 
 
 def test_entry_points_raise_without_a_device(monkeypatch):
