@@ -25,12 +25,33 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      point), the shortlisted ``score_samples`` / ``predict_proba``, a
      sync-free ``fit_sparse`` chunk, the kernel backend against the plain
      one, the shortlisted reads against the plain reads, and a profile.
-  6. one JSON line with every kernel, the card line, and the result line.
+  6. flash-attention forward, kernel against plain on the card: small
+     cases (d 16-128, ragged, T != S, causal and not, windows) in float32
+     and bfloat16, then the scoring shape (B = 1, T = S = 8192, 32 heads
+     over 8 KV heads, d = 80, window 4096) with per-row limits shown to
+     fail a kernel that drops one 64-key tile; times against its bound,
+     the plain version and ``scaled_dot_product_attention`` with the same
+     mask.
+  7. scoring at full width: h2o-danube-1.8b (24 layers, d_model 2560, bf16,
+     seeded init on the card), ``loss_fn`` over one SyntheticTokens batch
+     of 8192 tokens under ``no_grad`` with ``ATTN_IMPL = "flash"``: 24
+     flash_fwd launches a forward, a finite loss, tokens/s, peak memory,
+     the kernel's share of the device time; then 2 layers of that width
+     through "flash" and through the plain attention, with a limit on the
+     logits shown to fail with one key tile hidden.
+  8. generation at full width: ``ServeEngine`` (4 slots, a 4096-token
+     cache) over 8 requests of 256-3000 prompt tokens and 16 new tokens
+     each, the plain cached attention (no flash launch, as in the
+     reference); prefill and decode times; the engine's first-token
+     logits of the 3000-token prompt against ``forward_train``'s (flash),
+     with the same dropped-tile control.
+  9. one JSON line with every kernel, the card line, and the result line.
 
 Imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -44,10 +65,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
-# the tensor cores (the kernels use no tensor cores); both at 700 W.
+# the tensor cores, 989 TFLOP/s dense bf16 on the tensor cores; at 700 W.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 EPS32 = 2.0 ** -24
+EPS_BF16 = 2.0 ** -8           # bf16's unit roundoff (8 significant bits)
 
 
 def log(*a) -> None:
@@ -92,10 +115,11 @@ def time_ms(fn, reps: int, warmup: int = 2, cold: bool = False) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     """The least time the card could take: bytes over the memory rate or
-    float32 operations over the peak rate, whichever is larger."""
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOP_PER_S * 1e3
+    operations over the peak rate for their type (float32 unless given),
+    whichever is larger."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -273,7 +297,10 @@ def phase_kernels(dev, warm):
         max_abs_err=err,
         ms=time_ms(lambda: mahalanobis.mahalanobis(a, lam_p), 20),
         plain_ms=time_ms(lambda: ref.mahalanobis_ref(a, lam_p), 20),
-        bound_ms=bms, bound_by=by, library_ms=None)
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: torch.einsum("kd,kde,ke->k", a, lam_p, a),
+                           20),
+        library_call="torch.einsum")
     del lam, lam_p, s_rows, out, out2, rows_sel
 
     kr, dr, n = 16, 32, 256
@@ -656,6 +683,522 @@ def phase_resident(dev):
                           vmem_chunk_ms=vmem_chunk_ms)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: flash-attention forward, kernel against plain
+# ---------------------------------------------------------------------------
+
+FLASH_SMALL = [
+    # (B, T, S, H, KV, d, causal, window)
+    (1, 33, 65, 2, 2, 16, False, 0),
+    (2, 100, 100, 4, 2, 64, True, 0),
+    (1, 77, 130, 4, 1, 80, True, 9),
+    (1, 70, 190, 2, 2, 128, False, 17),
+    (1, 129, 129, 2, 2, 80, True, 0),
+]
+
+
+# the scoring shape: B, T = S, heads, KV heads, head_dim, window — what
+# every layer of h2o-danube-1.8b's forward gives the kernel at T = 8192
+FLASH_MAIN = (1, 8192, 32, 8, 80, 4096)
+
+
+def flash_inputs(dev, g, b, t, s, h, kv, d, dtype):
+    q = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g, device=dev).to(dtype)
+    qp = torch.arange(s - t, s, dtype=torch.int32,
+                      device=dev)[None].expand(b, t).contiguous()
+    kp = torch.arange(s, dtype=torch.int32,
+                      device=dev)[None].expand(b, s).contiguous()
+    return q, k, v, qp, kp
+
+
+def flash_limits(want, want_lse, n_keys: int):
+    """Per-row limit on ||out − plain||₂ and the limit on |lse − plain|.
+
+    bfloat16: each side rounds p (2⁻⁸ relative) and out (2⁻⁸); the p
+    roundings are independent across keys, so over a weighted sum of
+    random v they move the row by about 2⁻⁸ of its norm each: 4·2⁻⁸·‖row‖.
+    float32: each side's running sums of n keys err by about u·√n of the
+    row's norm: 8·u·√S·‖row‖ (u = 2⁻²⁴).  lse = m + log l, l a sum of at
+    most S positive terms each within a few ulps: 2·(S + 4)·u + 4u·|lse|
+    (worst case, both sides)."""
+    norm = want.float().norm(dim=-1)
+    if want.dtype == torch.bfloat16:
+        row = 4 * EPS_BF16 * norm
+    else:
+        row = 8 * EPS32 * n_keys ** 0.5 * norm
+    lse_tol = 2 * (n_keys + 4) * EPS32 + 4 * EPS32 * float(
+        want_lse.abs().max())
+    return row, lse_tol
+
+
+def flash_worst(got, got_lse, want, want_lse, n_keys: int):
+    """(largest row error over its limit, lse error over its limit)."""
+    row, lse_tol = flash_limits(want, want_lse, n_keys)
+    err = (got.float() - want.float()).norm(dim=-1)
+    return float((err / row).max()), max_err(got_lse, want_lse) / lse_tol
+
+
+def visible_pairs(qp, kp, window: int, causal: bool, heads: int) -> int:
+    """(query, key) pairs that the mask lets through, over all heads."""
+    total = 0
+    for b in range(qp.shape[0]):
+        for a in range(0, qp.shape[1], 1024):
+            dpos = qp[b, a:a + 1024, None] - kp[b, None, :]
+            m = (kp[b] >= 0)[None, :].expand_as(dpos)
+            if causal:
+                m = m & (dpos >= 0)
+            if window > 0:
+                m = m & (dpos < window)
+            total += int(m.sum())
+    return total * heads
+
+
+def phase_flash(dev):
+    from repro_torch.kernels import _build, flash_attention, ref
+
+    g = torch.Generator(device=dev).manual_seed(14)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_SMALL:
+            b, t, s, h, kv, d, causal, win = case
+            q, k, v, qp, kp = flash_inputs(dev, g, b, t, s, h, kv, d, dtype)
+            got, got_lse = flash_attention.flash_fwd(q, k, v, qp, kp, win,
+                                                     causal)
+            torch.cuda.synchronize()
+            want, want_lse = ref.flash_fwd_ref(q, k, v, qp, kp, win, causal)
+            w = flash_worst(got, got_lse, want, want_lse, s)
+            worst[(str(dtype)[6:],) + case] = w
+            if not max(w) <= 1.0:
+                raise AssertionError(f"flash_fwd {dtype} {case}: error over "
+                                     f"its limit (out, lse) {w}")
+    log("flash_fwd small cases (B, T, S, H, KV, d, causal, window) in "
+        "float32 and bfloat16: largest error over its limit (out rows, lse)")
+    for key, w in worst.items():
+        log(f"  {key}: {w[0]:.3e}, {w[1]:.3e}")
+
+    b, t, h, kv, d, win = FLASH_MAIN
+    row = None
+    for dtype in (torch.float32, torch.bfloat16):
+        log(f"flash_fwd at the scoring shape B={b} T=S={t} H={h} KV={kv} "
+            f"d={d} window={win} causal {str(dtype)[6:]}")
+        q, k, v, qp, kp = flash_inputs(dev, g, b, t, t, h, kv, d, dtype)
+        got, got_lse = flash_attention.flash_fwd(q, k, v, qp, kp, win)
+        torch.cuda.synchronize()
+        want, want_lse = ref.flash_fwd_ref(q, k, v, qp, kp, win)
+        w_out, w_lse = flash_worst(got, got_lse, want, want_lse, t)
+        err = max_err(got, want)
+        log(f"  out: max_abs_err {err:.3e}; largest row error over its "
+            f"limit {w_out:.3e}; lse: max_abs_err "
+            f"{max_err(got_lse, want_lse):.3e}, over its limit {w_lse:.3e}")
+        if not (w_out <= 1.0 and w_lse <= 1.0):
+            raise AssertionError(f"flash_fwd {dtype}: error over its limit "
+                                 f"(out {w_out}, lse {w_lse})")
+        # the limits must catch a kernel that skips one 64-key tile
+        kp_drop = kp.clone()
+        kp_drop[:, win:win + 64] = -1
+        drop, drop_lse = ref.flash_fwd_ref(q, k, v, qp, kp_drop, win)
+        d_out, d_lse = flash_worst(drop, drop_lse, want, want_lse, t)
+        log(f"  a tile dropped (keys {win}-{win + 63} hidden): largest row "
+            f"error over the limit {d_out:.3e}, lse {d_lse:.3e}")
+        if not (d_out > 1.0 and d_lse > 1.0):
+            raise AssertionError("flash_fwd: the limits would pass a "
+                                 "dropped tile")
+        del drop, drop_lse, kp_drop, want, want_lse, got, got_lse
+        if dtype != torch.bfloat16:
+            continue
+        pairs = visible_pairs(qp, kp, win, True, h)
+        log(f"  visible (query, key) pairs {pairs:.4e} "
+            f"({pairs / (h * t * t):.4f} of T·S·H)")
+        # q and out at H heads, k and v at KV heads (bf16), each read or
+        # written once, and the float32 lse; 4·d operations per pair
+        nbytes = 2 * 2 * b * t * (h + kv) * d + 4 * b * h * t
+        bms, by = bound_ms(nbytes, 4 * d * pairs, BF16_FLOP_PER_S)
+        log(f"  bound: {4 * d * pairs:.4e} operations at 989 TFLOP/s bf16 "
+            f"= {4 * d * pairs / BF16_FLOP_PER_S * 1e3:.4f} ms against "
+            f"{nbytes:.4e} bytes at 3.35 TB/s = "
+            f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
+        args = (q, k, v, qp, kp, win)
+        ms_cold = time_ms(lambda: flash_attention.flash_fwd(*args), 10,
+                          cold=True)
+        ms_warm = time_ms(lambda: flash_attention.flash_fwd(*args), 10)
+        plain = time_ms(lambda: ref.flash_fwd_ref(*args), 3, warmup=1)
+        qs, ks, vs = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        dpos = qp[0][:, None] - kp[0][None, :]
+        mask = (dpos >= 0) & (dpos < win)
+        sdpa_fn = torch.nn.functional.scaled_dot_product_attention
+        sdpa = time_ms(lambda: sdpa_fn(qs, ks, vs, attn_mask=mask,
+                                       enable_gqa=True), 10, cold=True)
+        # beside it, k and v expanded to H heads beforehand (not timed)
+        ke, ve = (x.repeat_interleave(h // kv, dim=1) for x in (ks, vs))
+        sdpa_mha = time_ms(lambda: sdpa_fn(qs, ke, ve, attn_mask=mask), 10,
+                           cold=True)
+        del qs, ks, vs, ke, ve, mask, dpos
+        log(f"  flash_fwd {ms_cold:.3f} ms cold L2, {ms_warm:.3f} warm "
+            f"(bound {bms:.4f} ms by {by}; plain {plain:.3f} ms; "
+            f"scaled_dot_product_attention, same bool mask, enable_gqa "
+            f"{sdpa:.3f} ms, on k and v expanded to {h} heads "
+            f"{sdpa_mha:.3f} ms)")
+        row = dict(
+            name="flash_fwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:228",
+            max_abs_err=err, ms=ms_cold, plain_ms=plain, bound_ms=bms,
+            bound_by=by, library_ms=sdpa,
+            library_call="scaled_dot_product_attention with a bool mask "
+                         "and enable_gqa",
+            library_expanded_kv_ms=sdpa_mha, warm_l2_ms=ms_warm,
+            visible_pairs=pairs, shape=dict(zip(
+                ("B", "T", "H", "KV", "d", "window"), FLASH_MAIN)))
+    del q, k, v
+    torch.cuda.empty_cache()
+    return row, {f"{k_}": v_ for k_, v_ in worst.items()}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: scoring at full width
+# ---------------------------------------------------------------------------
+
+def danube_params(dev):
+    from repro_torch import configs
+    from repro_torch.models import transformer
+
+    cfg = configs.get("h2o-danube-1.8b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"h2o-danube-1.8b: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, head_dim "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+        f"{cfg.window}; {transformer.param_count(params):,} params in "
+        f"{cfg.dtype}, seeded init on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def device_time_by_kernel(fn):
+    """Run ``fn`` once under torch.profiler: (device µs by kernel name,
+    wall µs)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    return {ev.key: ev.self_device_time_total for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA}, wall
+
+
+def phase_scoring(dev, cfg, params):
+    import dataclasses
+    from repro_torch.core.types import map_tree
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers, transformer
+
+    seq = 8192
+    data = SyntheticTokens(TokenPipelineConfig(cfg.vocab_size, seq, 1,
+                                               seed=0)).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    layers.ATTN_IMPL = "flash"
+    try:
+        with torch.no_grad():
+            transformer.loss_fn(params, cfg, batch)        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            loss, fwd_s = timed(lambda: transformer.loss_fn(params, cfg,
+                                                            batch))
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            times = [timed(lambda: transformer.loss_fn(params, cfg,
+                                                       batch))[1]
+                     for _ in range(3)]
+            by_kernel, wall_us = device_time_by_kernel(
+                lambda: transformer.loss_fn(params, cfg, batch))
+        loss = float(loss)
+        tok_s = seq / statistics.median(times)
+        busy = sum(by_kernel.values())
+        flash_us = sum(v for k_, v in by_kernel.items() if "flash_fwd" in k_)
+        log(f"scoring: B=1 T={seq} loss {loss:.4f}; forward {fwd_s * 1e3:.1f}"
+            f" ms, timed {[round(x * 1e3, 1) for x in times]} ms, "
+            f"{tok_s:.1f} tokens/s (their median); peak memory "
+            f"{peak / 2 ** 30:.2f} GiB; "
+            f"launches {launches}")
+        log(f"  profiled forward: wall {wall_us / 1e3:.1f} ms, device busy "
+            f"{busy / 1e3:.1f} ms, flash_fwd {flash_us / 1e3:.1f} ms "
+            f"({flash_us / busy:.3f} of the busy time)" if busy else
+            "  profiled forward: device time not measured")
+        for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            log(f"  {v / 1e3:10.2f} ms  {k_[:90]}")
+        if launches["flash_fwd"] != cfg.n_layers:
+            raise AssertionError(f"{launches['flash_fwd']} flash_fwd launches"
+                                 f" in a forward, want {cfg.n_layers}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"scoring loss {loss} is not finite")
+
+        # 2 layers of the same width: through the flash kernel (each
+        # layer's call also held against the plain version on its own
+        # inputs), through two wrong attentions, and through the plain
+        # attention ("xla")
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        p2 = dict(params, blocks=map_tree(lambda t: t[:2], params["blocks"]))
+        calls, wrong = [], {}
+        with torch.no_grad():
+            with flash_replaced(recording(calls)):
+                lf = transformer.forward_train(p2, cfg2, batch)
+            for kind in WRONG_KINDS:
+                with flash_replaced(wrong_flash(kind, cfg.window)):
+                    wrong[kind] = transformer.forward_train(p2, cfg2, batch)
+            layers.ATTN_IMPL = "xla"
+            lx = transformer.forward_train(p2, cfg2, batch)
+    finally:
+        layers.ATTN_IMPL = "xla"
+    per_layer = check_flash_calls(calls)
+    del calls
+    rel, controls = logits_check("2 layers, flash against plain", lf, lx,
+                                 wrong, cfg.window)
+    # the loss is printed, not checked: |Δ loss| ≤ 2·max|Δ logit| holds for
+    # any logits, so the per-position logits check decides
+    losses = [float(_loss(x, batch["targets"])) for x in (lf, lx)]
+    log(f"  loss: flash {losses[0]:.6f}, plain {losses[1]:.6f}")
+    del lf, lx, wrong
+    torch.cuda.empty_cache()
+    return launches, dict(loss=loss, forward_ms=fwd_s * 1e3,
+                          timed_ms=[x * 1e3 for x in times],
+                          tokens_per_s=tok_s, peak_gib=peak / 2 ** 30,
+                          profile_wall_ms=wall_us / 1e3,
+                          device_busy_ms=busy / 1e3,
+                          flash_share=flash_us / busy if busy else None,
+                          two_layer_flash_over_limit=per_layer,
+                          two_layer_logits_rel_err=rel,
+                          two_layer_controls_rel_err=controls,
+                          two_layer_loss=losses)
+
+
+def _loss(logits, targets):
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long()).mean()
+
+
+@contextlib.contextmanager
+def flash_replaced(fn):
+    """Inside, the model's flash attention calls ``fn`` in place of
+    ``flash_fwd`` (same arguments, same (out, lse) result)."""
+    from repro_torch.kernels import flash_attention
+
+    keep = flash_attention.flash_fwd
+    flash_attention.flash_fwd = fn
+    try:
+        yield
+    finally:
+        flash_attention.flash_fwd = keep
+
+
+def recording(calls: list):
+    """``flash_fwd`` that also keeps each call's inputs and results."""
+    from repro_torch.kernels import flash_attention
+
+    launch = flash_attention.flash_fwd
+
+    def fn(*args):
+        out, lse = launch(*args)
+        calls.append((args, out, lse))
+        return out, lse
+    return fn
+
+
+def tile_hidden(k_pos, lo: int):
+    """k_pos with the keys at positions lo..lo+63 hidden (−1): what a kernel
+    that skips one 64-key tile sees."""
+    hide = (k_pos >= lo) & (k_pos < lo + 64)
+    return torch.where(hide, torch.full_like(k_pos, -1), k_pos)
+
+
+# controls: the plain version made wrong on purpose ("tile": one 64-key tile
+# hidden; "gqa": query head h reads KV head h % KV, not h // (H / KV))
+WRONG_KINDS = ("tile", "gqa")
+
+
+def wrong_flash(kind: str, lo: int):
+    """A wrong ``flash_fwd`` of the kind named (it launches no kernel)."""
+    from repro_torch.kernels import ref
+
+    def fn(q, k, v, q_pos, k_pos, window, causal=True):
+        if kind == "tile":
+            k_pos = tile_hidden(k_pos, lo)
+        else:
+            idx = torch.arange(q.shape[2], device=q.device) % k.shape[2]
+            k, v = k[:, :, idx], v[:, :, idx]
+        return ref.flash_fwd_ref(q, k, v, q_pos, k_pos, window, causal)
+    return fn
+
+
+def check_flash_calls(calls) -> list:
+    """Each recorded flash_fwd call of the model against the plain version
+    on the same inputs, with phase 6's limits and its dropped-tile control:
+    [(largest out row error over its limit, lse over its), ...]."""
+    from repro_torch.kernels import ref
+
+    worst = []
+    for i, (args, out, lse) in enumerate(calls):
+        q, k, v, qp, kp, win, causal = args
+        n = k.shape[1]
+        want, want_lse = ref.flash_fwd_ref(*args)
+        w = flash_worst(out, lse, want, want_lse, n)
+        drop, drop_lse = ref.flash_fwd_ref(q, k, v, qp, tile_hidden(
+            kp, max(win, 0)), win, causal)
+        wd = flash_worst(drop, drop_lse, want, want_lse, n)
+        log(f"  layer {i}: flash_fwd on the model's own q {tuple(q.shape)}, "
+            f"k/v {tuple(k.shape)}, window {win}: out rows {w[0]:.3e} of "
+            f"their limit, lse {w[1]:.3e}; a tile dropped {wd[0]:.3e}, "
+            f"{wd[1]:.3e}")
+        if not max(w) <= 1.0:
+            raise AssertionError(f"layer {i}: flash_fwd over its limit {w}")
+        # a dropped tile fails the check if either output is over its limit
+        if not max(wd) > 1.0:
+            raise AssertionError(f"layer {i}: the limits would pass a "
+                                 "dropped tile")
+        worst.append(w)
+        del want, want_lse, drop, drop_lse
+    return worst
+
+
+# The two attention paths round p, and the plain one also each 512-key
+# chunk's context, to bf16: a few 2⁻⁸ of each attention row.  This is the
+# limit on the per-position logits error between them, relative to the
+# row's norm.  Each comparison shows that it fails both wrong attentions.
+LOGITS_REL_TOL = 8 * EPS_BF16
+
+
+def rel_rows(got, want) -> float:
+    """The largest ||got − want|| over ||want||, row by row (last axis)."""
+    return float(((got.float() - want.float()).norm(dim=-1)
+                  / want.float().norm(dim=-1)).max())
+
+
+def logits_check(what: str, got, want, wrong: dict, lo: int):
+    """``got`` against ``want`` within LOGITS_REL_TOL, beside the wrong
+    attentions' logits; fails if the limit would pass either of them."""
+    tol = LOGITS_REL_TOL
+    rel = rel_rows(got, want)
+    ctl = {kind: rel_rows(x, want) for kind, x in wrong.items()}
+    log(f"  {what}: largest per-position logits error {rel:.3e} of the "
+        f"row's norm (limit {tol:.3e}); controls: keys {lo}-{lo + 63} "
+        f"hidden {ctl['tile']:.3e} ({ctl['tile'] / tol:.2f} of the limit), "
+        f"query head h on KV head h % KV {ctl['gqa']:.3e} "
+        f"({ctl['gqa'] / tol:.2f} of the limit)")
+    if not rel <= tol:
+        raise AssertionError(f"{what}: the two attention paths disagree")
+    if not min(ctl.values()) > tol:
+        raise AssertionError(f"{what}: the logits limit would pass a wrong "
+                             f"attention {ctl}")
+    return rel, ctl
+
+
+# ---------------------------------------------------------------------------
+# phase 8: generation at full width
+# ---------------------------------------------------------------------------
+
+def phase_generation(dev, cfg, params):
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers, transformer
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    n_req, new = 8, 16
+    lengths = np.random.default_rng(0).integers(256, 3001, n_req)
+    lengths[0] = 3000                       # the cross-checked prompt
+    rows = SyntheticTokens(TokenPipelineConfig(cfg.vocab_size, 3000, n_req,
+                                               seed=1)).batch(0)["tokens"]
+    eng = ServeEngine(cfg, params, n_slots=4, max_len=4096, device=dev)
+    prefills, decodes, first = [], [], {}
+    prefill, decode = eng.prefill, eng.decode
+
+    def timed_prefill(p, tokens, lengths_, cache):
+        out, s = timed(lambda: prefill(p, tokens, lengths_, cache))
+        prefills.append((int(tokens.shape[1]), int(lengths_[0]), s * 1e3))
+        first.setdefault(int(lengths_[0]), out[0][0].clone())
+        return out
+
+    def timed_decode(p, token, cache):
+        out, s = timed(lambda: decode(p, token, cache))
+        decodes.append(s * 1e3)
+        return out
+    eng.prefill, eng.decode = timed_prefill, timed_decode
+    reqs = [Request(rid=i, prompt=rows[i, :n], max_tokens=new)
+            for i, n in enumerate(lengths)]
+    for r in reqs:
+        eng.submit(r)
+    _build.reset_launches()
+    _, run_s = timed(lambda: eng.run(max_ticks=1000))
+    launches = dict(_build.LAUNCHES)
+    generated = sum(len(r.out_tokens) for r in reqs)
+    by_bucket = {}
+    for bucket, _, ms in prefills:
+        by_bucket.setdefault(bucket, []).append(ms)
+    log(f"generation: ServeEngine 4 slots, max_len 4096; {n_req} requests, "
+        f"prompts {sorted(int(x) for x in lengths)}, {new} new tokens each: "
+        f"{generated} tokens in {run_s:.2f} s, {generated / run_s:.1f} "
+        f"tokens/s")
+    shown = {b: [round(x, 1) for x in v] for b, v in sorted(by_bucket.items())}
+    log(f"  prefill ms by bucket: {shown}")
+    log(f"  decode step: median {statistics.median(decodes):.2f} ms over "
+        f"{len(decodes)} steps (4 slots); launches {launches} "
+        f"(flash_fwd 0: prefill and decode use the plain cached attention, "
+        f"as in the reference)")
+    if not all(r.done and len(r.out_tokens) == new for r in reqs):
+        raise AssertionError("generation: a request did not finish")
+    if launches["flash_fwd"] != 0:
+        raise AssertionError("generation launched the flash kernel")
+    # where a decode step's time goes: one more step of the 4 slots
+    tok = torch.from_numpy(eng.last_token).to(dev)
+    by_kernel, wall_us = device_time_by_kernel(
+        lambda: decode(params, tok, eng.cache))
+    busy = sum(by_kernel.values())
+    n_kern = len(by_kernel)
+    log(f"  profiled decode step: wall {wall_us / 1e3:.2f} ms, device busy "
+        f"{busy / 1e3:.2f} ms ({busy / wall_us:.3f} of the wall time), "
+        f"{n_kern} distinct kernels")
+    for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+        log(f"  {v / 1e3:10.3f} ms  {k_[:90]}")
+
+    # the cached prefill's first-token logits (plain attention) for the
+    # 3000-token prompt against forward_train's last position through the
+    # flash kernel and through the two wrong attentions (24 blocks whose
+    # other operations are the same)
+    prompt = {"tokens": torch.from_numpy(rows[:1, :3000]).to(dev)}
+    layers.ATTN_IMPL = "flash"
+    wrong = {}
+    try:
+        with torch.no_grad():
+            full = transformer.forward_train(params, cfg, prompt)[0, -1]
+            for kind in WRONG_KINDS:
+                with flash_replaced(wrong_flash(kind, 1024)):
+                    wrong[kind] = transformer.forward_train(
+                        params, cfg, prompt)[0, -1]
+    finally:
+        layers.ATTN_IMPL = "xla"
+    got = first[3000]
+    log(f"  3000-token prompt: max_abs_err {max_err(full, got):.3e}, same "
+        f"argmax: {int(torch.argmax(got)) == int(torch.argmax(full))}")
+    rel, controls = logits_check(
+        "engine's first-token logits against forward_train (flash) at the "
+        "last position", full, got, wrong, 1024)
+    return launches, dict(
+        requests=n_req, prompt_lengths=[int(x) for x in lengths],
+        new_tokens=new, run_s=run_s, tokens_per_s=generated / run_s,
+        prefill_ms_by_bucket={str(b): v for b, v in by_bucket.items()},
+        decode_ms_median=statistics.median(decodes), decode_steps=len(decodes),
+        decode_profile_wall_ms=wall_us / 1e3, decode_busy_ms=busy / 1e3,
+        first_token_rel_err=rel, first_token_controls_rel_err=controls)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -681,6 +1224,13 @@ def main() -> int:
     res_launches, res = phase_resident(dev)
     sparse_launches, sparse = phase_sparse(dev)
     sparse["warm_l2_ms"] = warm
+    flash_row, flash_small = phase_flash(dev)
+    rows["flash_fwd"] = flash_row
+    cfg, params = danube_params(dev)
+    score_launches, scoring = phase_scoring(dev, cfg, params)
+    gen_launches, generation = phase_generation(dev, cfg, params)
+    del params
+    rows["flash_fwd"]["launches"] = score_launches["flash_fwd"]
     rows["matvec2"]["launches"] = main_launches["matvec2"]
     rows["rank2_apply"]["launches"] = main_launches["rank2_apply"]
     rows["figmn_stream"]["launches"] = res_launches["figmn_stream"]
@@ -693,7 +1243,12 @@ def main() -> int:
     print(json.dumps({"kernels": [{k_: r[k_] for k_ in keys}
                                   for r in rows.values()],
                       "full_width": full, "resident": res,
-                      "sparse": sparse,
+                      "sparse": sparse, "flash_small": flash_small,
+                      "flash": {k_: flash_row[k_] for k_ in (
+                          "warm_l2_ms", "visible_pairs", "library_call",
+                          "library_expanded_kv_ms", "shape")},
+                      "scoring": scoring, "generation": generation,
+                      "generation_launches": gen_launches,
                       "build_s": build_s}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

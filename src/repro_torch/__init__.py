@@ -10,8 +10,11 @@ library only.
             with ctypes) + their plain PyTorch versions (ref.py)
   stream    StreamRuntime: chunked ingestion (scan/vmem), telemetry
   api       Mixture / MixtureSpec on the "runtime" tier
-  interop   configs and states to and from numpy
-  data      deterministic synthetic streams
+  interop   configs, mixture states and LM parameters to and from numpy
+  data      deterministic synthetic streams and LM tokens
+  models    the LM stack, dense family (config, layers, transformer)
+  configs   the LM architecture registry (h2o-danube-1.8b so far)
+  serve     the batched LM serving engine
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 device and no card they raise.  Float32 products run in full float32: TF32

@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 from fractions import Fraction
-from typing import Any, Optional
+from typing import Any, Callable, Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,6 +30,17 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' explicitly to "
             "run on the CPU")
     return torch.device("cuda")
+
+
+def map_tree(fn: Callable, *trees, is_leaf: Optional[Callable] = None):
+    """``fn`` over the leaves of nested dicts that share one structure (the
+    first tree's); a leaf is what is not a Mapping, or what ``is_leaf``
+    says is one."""
+    t = trees[0]
+    if not isinstance(t, Mapping) or (is_leaf is not None and is_leaf(t)):
+        return fn(*trees)
+    return {k: map_tree(fn, *(s[k] for s in trees), is_leaf=is_leaf)
+            for k in t}
 
 
 @dataclasses.dataclass(frozen=True)

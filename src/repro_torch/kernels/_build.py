@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", ARCH, "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 LAUNCHES = {"matvec2": 0, "rank2_apply": 0, "figmn_stream": 0,
-            "gathered_matvec": 0, "scatter_apply": 0, "mahalanobis": 0}
+            "gathered_matvec": 0, "scatter_apply": 0, "mahalanobis": 0,
+            "flash_fwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -49,6 +50,9 @@ _SIGNATURES = {
     "figmn_gathered_matvec": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "figmn_scatter_apply": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "figmn_mahalanobis": ([_P, _P, _P, _I, _I, _P], _I),
+    "figmn_flash_fwd_smem_bytes": ([_I], ctypes.c_longlong),
+    "figmn_flash_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _F, _I, _P], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -146,13 +150,16 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def check_tensor(name: str, t: Optional[torch.Tensor],
-                 shape: Tuple[int, ...], device: torch.device) -> None:
-    """What every kernel takes: float32, this shape, this device,
-    contiguous.  None passes (an optional operand left out)."""
+                 shape: Tuple[int, ...], device: torch.device,
+                 dtypes: Tuple[torch.dtype, ...] = (torch.float32,)) -> None:
+    """What every kernel takes: float32 (or one of ``dtypes``), this
+    shape, this device, contiguous.  None passes (an optional operand left
+    out)."""
     if t is None:
         return
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"{name} must be {want}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
     if t.device != device:

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 Tensor = torch.Tensor
@@ -148,3 +149,60 @@ def figmn_stream_ref(xs: Tensor, mu: Tensor, lam: Tensor, logdet: Tensor,
         sp = sp_new
         nacc += accept.to(torch.int32)
     return mu, lam, logdet, sp, nacc
+
+
+FLASH_NEG = -1e30          # the masked logit (never -inf: no row turns NaN)
+
+
+def flash_scale(d: int) -> float:
+    """The logit scale 1/sqrt(d) as the float32 value both the reference
+    kernel and ``csrc/flash_attention.cu`` multiply by (after the dot)."""
+    return float(np.float32(1.0 / (d ** 0.5)))
+
+
+def flash_fwd_ref(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                  k_pos: Tensor, window: int, causal: bool = True
+                  ) -> Tuple[Tensor, Tensor]:
+    """Attention with the arithmetic of the reference's ``_flash_kernel``,
+    over all keys at once.
+
+    q: (B, T, H, d); k, v: (B, S, KV, d) with H a multiple of KV (query
+    head h reads KV head h // (H / KV)); q_pos (B, T), k_pos (B, S) int32;
+    window an int, ≤ 0 for full attention.  Returns out (B, T, H, d) in
+    q's dtype and lse (B, H, T) float32.
+
+    q and k go to float32 and the scale multiplies the dot; a key is
+    visible iff k_pos ≥ 0, (causal) q_pos − k_pos ≥ 0 and (window ≤ 0 or
+    q_pos − k_pos < window); hidden logits are −1e30; p = exp(logit − m)
+    is summed in float32 for l and rounded to v's dtype before the PV
+    product, which accumulates in float32; out = acc / max(l, 1e-30) in
+    q's dtype, lse = m + log(max(l, 1e-30)).  A row that sees no key has
+    m = −1e30 and p = 1 on every key: out is the mean of v over the S keys.
+    One head at a time, so the (B, T, S) logits are the largest transient.
+    """
+    b, t, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    scale = flash_scale(d)
+    dpos = q_pos[:, :, None] - k_pos[:, None, :]                  # (B, T, S)
+    mask = (k_pos >= 0)[:, None, :].expand(b, t, k_pos.shape[1])
+    if causal:
+        mask = mask & (dpos >= 0)
+    if window > 0:
+        mask = mask & (dpos < window)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    for hh in range(h):
+        kh = hh // g
+        logits = torch.einsum("btd,bsd->bts", q[:, :, hh].float(),
+                              k[:, :, kh].float()) * scale
+        logits = torch.where(mask, logits, FLASH_NEG)
+        m = logits.amax(dim=-1)
+        p = torch.exp(logits - m[..., None])
+        l = p.sum(dim=-1)
+        acc = torch.einsum("bts,bsd->btd", p.to(v.dtype).float(),
+                           v[:, :, kh].float())
+        lc = torch.clamp_min(l, 1e-30)
+        out[:, :, hh] = (acc / lc[..., None]).to(q.dtype)
+        lse[:, hh] = m + torch.log(lc)
+    return out, lse

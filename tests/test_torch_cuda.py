@@ -12,7 +12,9 @@ the resident kernel over a chunk uses tests/test_figmn_stream_kernel.py's
 tolerances (1e-3).  gathered_matvec is a matvec (the same bound);
 mahalanobis nests two such sums (γ_D on each, on precision-like Λ);
 scatter_apply equals its plain version bit for bit and leaves the K − C
-other rows bit-equal.
+other rows bit-equal.  flash_fwd: per row, ‖out − plain‖₂ within
+4·2⁻⁸·‖row‖ in bf16 (p and out rounded on each side) and 8·u·√S·‖row‖ in
+float32, lse within 2·(S + 4)·u + 4u·|lse| (chip_smoke.py's limits).
 """
 import dataclasses
 
@@ -23,7 +25,9 @@ import torch
 from repro_torch.core import figmn, shortlist
 from repro_torch.core.types import FIGMNConfig, gate_threshold
 from repro_torch.kernels import (_build, figmn_sparse, figmn_stream,
-                                 figmn_update, mahalanobis, ref)
+                                 figmn_update, flash_attention, mahalanobis,
+                                 ref)
+from repro_torch.models import layers, transformer
 
 EPS32 = 2.0 ** -24
 
@@ -206,3 +210,71 @@ def test_fit_sparse_on_the_card(cuda):
     m = want.active
     torch.testing.assert_close(got.lam[m], want.lam[m], rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(got.mu[m], want.mu[m], rtol=1e-4, atol=1e-4)
+
+
+FLASH_CASES = [
+    # (B, T, S, H, KV, d, causal, window)
+    (2, 32, 32, 2, 2, 16, True, 0),
+    (1, 33, 65, 2, 1, 64, False, 0),
+    (1, 100, 300, 4, 2, 80, True, 37),
+    (1, 70, 70, 2, 2, 128, True, 0),
+    (1, 65, 130, 2, 2, 256, False, 20),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case, dtype):
+    b, t, s, h, kv, d, causal, win = case
+    g = torch.Generator(device=cuda).manual_seed(d + t)
+    q = torch.randn((b, t, h, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, s, kv, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, s, kv, d), generator=g, device=cuda).to(dtype)
+    qp = torch.arange(s - t, s, dtype=torch.int32,
+                      device=cuda)[None].expand(b, t).contiguous()
+    kp = torch.arange(s, dtype=torch.int32,
+                      device=cuda)[None].expand(b, s).contiguous()
+    kp[:, :3] = -1                            # hidden slots
+    before = _build.LAUNCHES["flash_fwd"]
+    out, lse = flash_attention.flash_fwd(q, k, v, qp, kp, win, causal)
+    assert _build.LAUNCHES["flash_fwd"] == before + 1
+    want, want_lse = ref.flash_fwd_ref(q, k, v, qp, kp, win, causal)
+    norm = want.float().norm(dim=-1)
+    row = 4 * 2.0 ** -8 * norm if dtype == torch.bfloat16 \
+        else 8 * EPS32 * s ** 0.5 * norm
+    assert bool(((out.float() - want.float()).norm(dim=-1) <= row).all())
+    lse_tol = 2 * (s + 4) * EPS32 + 4 * EPS32 * float(want_lse.abs().max())
+    assert float((lse - want_lse).abs().max()) <= lse_tol
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.cuda
+def test_flash_path_launches_once_per_layer(cuda):
+    """ATTN_IMPL = "flash" with CUDA tensors: one flash_fwd launch per
+    layer of a forward, none with the plain attention."""
+    from repro_torch import configs
+    cfg = configs.get_smoke("h2o-danube-1.8b")
+    params = transformer.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         dtype=torch.int32)
+    before = _build.LAUNCHES["flash_fwd"]
+    try:
+        layers.ATTN_IMPL = "flash"
+        with torch.no_grad():
+            a = transformer.forward_train(params, cfg, {"tokens": toks})
+    finally:
+        layers.ATTN_IMPL = "xla"
+    assert _build.LAUNCHES["flash_fwd"] == before + cfg.n_layers
+    with torch.no_grad():
+        b = transformer.forward_train(params, cfg, {"tokens": toks})
+    assert _build.LAUNCHES["flash_fwd"] == before + cfg.n_layers
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_refuses_float64_on_the_card(cuda):
+    q = torch.zeros((1, 4, 2, 16), dtype=torch.float64, device=cuda)
+    pos = torch.arange(4, dtype=torch.int32, device=cuda)[None]
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_fwd(q, q, q, pos, pos, 0)

@@ -21,7 +21,10 @@ def test_import_pulls_in_no_jax():
             "repro_torch.stream, repro_torch.interop, repro_torch.kernels.ops, "
             "repro_torch.kernels.figmn_stream, repro_torch.data.gmm_streams, "
             "repro_torch.core.shortlist, repro_torch.kernels.figmn_sparse, "
-            "repro_torch.kernels.mahalanobis; "
+            "repro_torch.kernels.mahalanobis, "
+            "repro_torch.kernels.flash_attention, repro_torch.configs, "
+            "repro_torch.models.transformer, repro_torch.serve.engine, "
+            "repro_torch.data.tokens; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "assert not bad, bad")
