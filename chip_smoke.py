@@ -10,7 +10,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   2. each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives it, with the stated tolerance; then its
      time (CUDA events, median), its bound, the plain version's time and
-     one library call's time where one computes the same function.
+     one library call's time where one computes the same function.  The
+     resident kernel over a grid of blocks (``figmn_stream_grid``) is
+     checked at the phase 2 shape with a forced 3-block plan and at the
+     TPU kernel's design point (K = 32, D = 256, 8 MiB of Λ): equal
+     accepts, μ/Λ/logdet/sp within 16·√(N·D)·u of their scale, two wrong
+     variants (one block's d² partial dropped; one block's Λ rows left
+     un-updated for one point) that must fail that check, two launches
+     bit-equal.
   3. the main path at full width: ``Mixture.partial_fit`` /
      ``score_samples`` / ``predict_proba`` over an mnist-subset-shaped
      stream (N = 1000, 784 features + 10 one-hot labels, D = 794) with
@@ -19,6 +26,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   4. the resident path: a StreamRuntime at K = 16, D = 32 whose "auto" path
      must resolve to the resident kernel, held against the plain resident
      loop replayed on the card.
+  4b. the resident path on pools beyond one block: StreamRuntime with
+     ``benchmarks/figmn_runtime.py``'s stream, FIGMNConfig and lifecycle
+     (every 8 chunks, budget K) at K = 32, D = 256 and at K = 32, D = 64,
+     chunk 128, N = 2048; "auto" must resolve to "vmem" and launch
+     ``figmn_stream_grid``; points/s, the chunk ms, accepts and the
+     lifecycle counts; the same runtime with the plain loop in the
+     kernel's place must agree (counts equal, states within the limit),
+     and with either wrong variant in its first resident chunk must not
+     (these replays stop after the first lifecycle pass and are held
+     against the plain replay there); then the "scan" body these pools
+     ran before, over 384 points, for comparison.
   5. the top-C shortlist path at full width: the phase 3 stream with
      ``shortlist_c = 8``, whose "auto" path must resolve to "sparse";
      ``partial_fit`` (one gathered_matvec and one scatter_apply launch per
@@ -45,13 +63,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      reference); prefill and decode times; the engine's first-token
      logits of the 3000-token prompt against ``forward_train``'s (flash),
      with the same dropped-tile control.
-  9. one JSON line with every kernel, the card line, and the result line.
+  9. one JSON line with every kernel (and each phase's wall seconds), the
+     card line, and the result line.
 
 Imports neither JAX nor the reference package.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -62,6 +82,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 
 # NVIDIA H100 SXM data sheet: HBM3 at 3.35 TB/s, 67 TFLOP/s float32 outside
@@ -121,6 +142,20 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float = FP32_FLOP_PER_S):
     whichever is larger."""
     tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def stream_bound(n: int, d: int, k: int, ka: int, nacc: int):
+    """The resident kernels' bound for an n-point chunk over a pool of k
+    slots, ka of them active, nacc points accepted: the operations this
+    run's data needs (the gate matvec and d² of every point, the rank-one
+    update and μ step of the accepted ones, each over the active slots
+    only: an inactive slot's μ and Λ come back unchanged), and the bytes
+    of the points, the active slots' μ, Λ, logdet and sp read and written,
+    the active mask and the accept count."""
+    flops = n * (2 * ka * d * d + 2 * ka * d) \
+        + nacc * (4 * ka * d * d + 2 * ka * d)
+    nbytes = 4 * (n * d + 2 * (ka * d * d + ka * d + 2 * ka) + k + 1)
+    return bound_ms(nbytes, flops)
 
 
 def check_close(name: str, err: float, tol: float) -> None:
@@ -331,13 +366,7 @@ def phase_kernels(dev, warm):
                 1e-3 + 1e-3 * float(want[1][m].abs().max()))
     check_close("figmn_stream logdet", errs[2], 1e-3)
     check_close("figmn_stream sp", errs[3], 1e-3)
-    nacc = int(got[4][0])
-    # operations this run's data needs: the gate matvec and d² for every
-    # point, the rank-one update and μ step for accepted points only
-    flops = n * (2 * kr * dr * dr + 2 * kr * dr) \
-        + nacc * (4 * kr * dr * dr + 2 * kr * dr)
-    nbytes = 4 * (n * dr + 2 * (kr * dr * dr + kr * dr + 2 * kr) + kr + 1)
-    bms, by = bound_ms(nbytes, flops)
+    bms, by = stream_bound(n, dr, kr, int(st.n_active), int(got[4][0]))
     rows["figmn_stream"] = dict(
         name="figmn_stream", route="cuda",
         source="src/repro_torch/kernels/csrc/figmn_stream.cu",
@@ -346,6 +375,7 @@ def phase_kernels(dev, warm):
         ms=time_ms(lambda: figmn_stream.figmn_stream(*args), 10),
         plain_ms=time_ms(lambda: ref.figmn_stream_ref(*args), 3, warmup=1),
         bound_ms=bms, bound_by=by, library_ms=None)
+    rows["figmn_stream_grid"] = grid_kernel_row(dev, args, st.active)
     for r in rows.values():
         log(f"  {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f} ms "
             f"by {r['bound_by']}; plain {r['plain_ms']:.4f} ms; library "
@@ -681,6 +711,371 @@ def phase_resident(dev):
     check_close("resident sp", max_err(rt.state.sp[m], st.sp[m]), 1e-3)
     return launches, dict(points_per_s=n / ingest_s,
                           vmem_chunk_ms=vmem_chunk_ms)
+
+
+# ---------------------------------------------------------------------------
+# the resident kernel over a grid of blocks (phases 2 and 4b)
+# ---------------------------------------------------------------------------
+
+RESIDENT_SIGMAS = 16
+# (K, D, points) of the grid kernel's check and time in phase 2: the TPU
+# kernel's design point, 8 MiB of Λ (src/repro/kernels/figmn_stream.py:4-6)
+GRID_KERNEL_SHAPE = (32, 256, 256)
+STATE_NAMES = ("mu", "lam", "logdet", "sp")
+
+
+def resident_limit(n: int, d: int) -> float:
+    """The resident state's limit, kernel (or runtime) against the plain
+    loop, relative to each quantity's largest magnitude over the active
+    slots: the two summation orders of y, d² and the posterior's
+    normaliser differ by about √D·u per D-term sum, and the difference
+    walks over the N sequential points: 16·√(N·D)·u (a 16σ margin)."""
+    return RESIDENT_SIGMAS * (n * d) ** 0.5 * EPS32
+
+
+def stream_fault(args, plan, kind: str):
+    """The plain resident loop with one fault the grid kernel could make,
+    in the block (of ``plan``) that holds the middle row of the active
+    component with the largest sp:
+
+      "drop"  that block's d² partial never reaches the sum (every point);
+      "skip"  that block's Λ rows keep their values at the first accepted
+              point whose largest posterior is that component's.
+    """
+    from repro_torch.kernels import figmn_stream
+    from repro_torch.kernels.ref import _LOG_2PI, matvec_ref
+
+    xs, mu, lam, logdet, sp, active, thresh, dim = args
+    k, d = mu.shape
+    act = active.bool()
+    kt = int(torch.argmax(torch.where(act, sp, torch.full_like(sp, -1.0))))
+    r0, nr = next((a, m) for a, m in figmn_stream.plan_blocks(plan, k, d)
+                  if a <= kt * d + d // 2 < a + m)
+    keep = torch.ones(k * d, device=xs.device)
+    if kind == "drop":
+        keep[r0:r0 + nr] = 0.0
+    keep = keep.view(k, d)
+    mu, lam, logdet, sp = mu.clone(), lam.clone(), logdet.clone(), sp.clone()
+    nacc, skipped = 0, kind != "skip"
+    for t in range(xs.shape[0]):
+        diff = xs[t][None, :] - mu
+        y = matvec_ref(lam, diff)
+        d2 = (diff * y * keep).sum(dim=1)
+        accept = bool(torch.any(act & (d2 < thresh)))
+        logp = -0.5 * (dim * _LOG_2PI + logdet + d2)
+        logw = torch.where(act, logp + torch.log(sp.clamp_min(1e-30)),
+                           torch.full_like(logp, -1e30))
+        p_un = torch.where(act, torch.exp(logw - logw.max()),
+                           torch.zeros_like(logw))
+        post = p_un / p_un.sum().clamp_min(1e-30) if accept \
+            else torch.zeros_like(p_un)
+        sp_new = sp + post
+        w = post / sp_new.clamp_min(1e-30)
+        beta = w / (1.0 + w * d2)
+        new = (lam - (beta[:, None] * y)[:, None, :] * y[:, :, None]) \
+            / (1.0 - w)[:, None, None]
+        if not skipped and accept and int(torch.argmax(post)) == kt:
+            new.view(-1, d)[r0:r0 + nr] = lam.view(-1, d)[r0:r0 + nr]
+            skipped = True
+        mu = mu + w[:, None] * diff
+        lam = new
+        logdet = logdet + (dim * torch.log(1.0 - w) + torch.log1p(w * d2))
+        sp = sp_new
+        nacc += accept
+    return mu, lam, logdet, sp, torch.tensor([nacc], dtype=torch.int32,
+                                             device=xs.device)
+
+
+def resident_readings(got, want, active, limit: float) -> dict:
+    """Each of μ, Λ, logdet, sp: the largest error over the active slots
+    as a fraction of its limit (``limit`` · the quantity's scale)."""
+    return {name: max_err(g[active], w[active])
+            / (limit * float(w[active].abs().max()))
+            for name, g, w in zip(STATE_NAMES, got, want)}
+
+
+def check_resident(what: str, got, want, active, limit: float,
+                   controls: dict, same=None, control_want=None) -> float:
+    """``got`` (μ, Λ, logdet, sp) against the plain ``want`` within
+    ``limit`` (``same``: counts as (got, plain) pairs that must be equal);
+    then every wrong variant in ``controls`` (name → (its state, or None
+    when its active slots moved; the counts that moved)) must fail that
+    check, held against ``control_want`` (the plain state and active mask
+    where the variants stopped) or else ``want``.  Returns the largest
+    absolute error."""
+    same = same or {}
+    c_want, c_active = control_want or (want, active)
+    bad = {k_: v for k_, v in same.items() if v[0] != v[1]}
+    if bad:
+        raise AssertionError(f"{what}: counts differ (got, plain): {bad}")
+    r = resident_readings(got, want, active, limit)
+    log(f"  {what}: limit {limit:.3e} of the scale; errors over it "
+        + ", ".join(f"{k_} {v:.3e}" for k_, v in r.items())
+        + f"; counts {', '.join(f'{k_} {v[0]}' for k_, v in same.items())}")
+    if not all(v <= 1.0 for v in r.values()):
+        raise AssertionError(f"{what}: outside its limit: {r}")
+    for kind, (state, moved) in controls.items():
+        rb = {} if state is None \
+            else resident_readings(state, c_want, c_active, limit)
+        log(f"    wrong variant {kind!r}: over the limit "
+            + (", ".join(f"{k_} {v:.3e}" for k_, v in rb.items())
+               or "(active slots moved)")
+            + f"; counts that moved (variant, plain) {moved}")
+        if state is not None and not moved \
+                and all(v <= 1.0 for v in rb.values()):
+            raise AssertionError(f"{what}: the limits pass the wrong "
+                                 f"variant {kind!r}")
+    return max(max_err(g[active], w[active])
+               for g, w in zip(got, want))
+
+
+def grid_kernel_row(dev, small_args, small_active):
+    """phase 2: figmn_stream_grid against its plain version at the phase 2
+    shape with a forced 3-block plan (rows straddle components) and at the
+    TPU kernel's design point (K = 32, D = 256, 8 MiB of Λ), each with
+    both wrong variants and two launches bit-equal; then its time."""
+    from repro_torch.core import figmn
+    from repro_torch.core.types import FIGMNConfig, gate_threshold
+    from repro_torch.kernels import _build, figmn_stream, ref
+
+    smem = _build.smem_optin(dev)
+    cap = figmn_stream.grid_capacity(dev, smem)
+    log(f"figmn_stream_grid: {cap} co-resident blocks at {smem} bytes; "
+        f"{_build.sm_count(dev)} SMs")
+
+    def run_checks(what, args, active, plan):
+        n, d = args[0].shape
+        if _build.lib().figmn_stream_grid_smem_bytes(
+                plan.rows, plan.nc, d) != plan.smem_bytes:
+            raise AssertionError("grid_smem_bytes disagrees with the "
+                                 "kernel's layout")
+        got = figmn_stream.figmn_stream(*args, plan=plan)
+        again = figmn_stream.figmn_stream(*args, plan=plan)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{what}: two launches differ")
+        want = ref.figmn_stream_ref(*args)
+        controls = {}
+        for kind in ("drop", "skip"):
+            bad = stream_fault(args, plan, kind)
+            moved = {"accepts": (int(bad[4][0]), int(want[4][0]))}
+            controls[kind] = (bad[:4], {k_: v for k_, v in moved.items()
+                                        if v[0] != v[1]})
+        err = check_resident(
+            what, got[:4], want[:4], active, resident_limit(n, d), controls,
+            same={"accepts": (int(got[4][0]), int(want[4][0]))})
+        log(f"  {what}: two launches bit-equal")
+        return err, int(got[4][0])
+
+    kr, dr = small_active.shape[0], small_args[0].shape[1]
+    plan3 = figmn_stream.grid_plan(kr, dr, smem, cap, blocks=3)
+    log(f"figmn_stream_grid at K={kr} D={dr} N={small_args[0].shape[0]}, "
+        f"forced {plan3}")
+    err_small, _ = run_checks("figmn_stream_grid G=3", small_args,
+                              small_active, plan3)
+    small_ms = time_ms(lambda: figmn_stream.figmn_stream(*small_args,
+                                                         plan=plan3), 10)
+
+    k, d, n = GRID_KERNEL_SHAPE
+    x = torch.from_numpy(resident_stream(n + 512, d, seed=2,
+                                         modes=8)).to(dev)
+    cfg = FIGMNConfig(kmax=k, dim=d, beta=0.1, delta=1.0, vmin=1e9,
+                      spmin=0.0, update_mode="exact",
+                      sigma_ini=figmn.sigma_from_data(x, 1.0))
+    st = figmn.fit(cfg, figmn.init_state(cfg, dev), x[:512])
+    args = (x[512:].contiguous(), st.mu, st.lam, st.logdet, st.sp,
+            st.active.to(torch.int32), gate_threshold(cfg), d)
+    plan = figmn_stream.resident_plan(k, d, dev)
+    if plan is None:
+        raise AssertionError(f"K={k} D={d} fits one block: no grid")
+    log(f"figmn_stream_grid at K={k} D={d} N={n} ({int(st.n_active)} active"
+        f" slots), {plan}")
+    err, nacc = run_checks("figmn_stream_grid", args, st.active, plan)
+    bms, by = stream_bound(n, d, k, int(st.n_active), nacc)
+    row = dict(
+        name="figmn_stream_grid", route="cuda",
+        source="src/repro_torch/kernels/csrc/figmn_stream_grid.cu",
+        replaces="src/repro/kernels/figmn_stream.py:98",
+        max_abs_err=max(err, err_small),
+        ms=time_ms(lambda: figmn_stream.figmn_stream(*args), 10),
+        plain_ms=time_ms(lambda: ref.figmn_stream_ref(*args), 3, warmup=1),
+        bound_ms=bms, bound_by=by, library_ms=None)
+    row.update(plan=dataclasses.asdict(plan), barriers_per_launch=n,
+               g3_small_ms=small_ms)
+    log(f"  figmn_stream_grid: {row['ms']:.4f} ms a {n}-point chunk, "
+        f"{row['ms'] * 1e3 / n:.2f} us a point with one grid barrier each "
+        f"over {plan.blocks} blocks; at K={kr} D={dr} with G=3 "
+        f"{small_ms:.4f} ms")
+    return row
+
+
+@contextlib.contextmanager
+def resident_body(fn):
+    """Run the runtime's resident chunks through ``fn`` (the arguments of
+    ``figmn_stream.figmn_stream``) in the kernels' place."""
+    from repro_torch.kernels import figmn_stream
+
+    kernel = figmn_stream.figmn_stream
+    figmn_stream.figmn_stream = fn
+    try:
+        yield
+    finally:
+        figmn_stream.figmn_stream = kernel
+
+
+def plain_body(*args, **_):
+    """The plain resident loop, on the card, in the kernels' place."""
+    from repro_torch.kernels import ref
+    return ref.figmn_stream_ref(*args)
+
+
+def faulty_body(plan, kind: str):
+    """The plain loop, with ``stream_fault`` in the first resident chunk."""
+    calls = []
+
+    def fn(*args, **_):
+        calls.append(1)
+        if len(calls) == 1:
+            return stream_fault(args, plan, kind)
+        return plain_body(*args)
+    return fn
+
+
+class FirstPass(Exception):
+    """Ends a replay after its first lifecycle pass."""
+
+
+def state_fields(r):
+    return [getattr(r.state, f) for f in STATE_NAMES]
+
+
+def replay(cfg, rc, x, body, stop: bool = False):
+    """``StreamRuntime(cfg, rc).ingest(x)`` with ``body`` in the resident
+    kernels' place; also returns (the summary, the state, the active mask)
+    just after its first lifecycle pass, and with ``stop`` ends there."""
+    from repro_torch.stream import StreamRuntime
+
+    with resident_body(body):
+        r = StreamRuntime(cfg, rc)
+        run, first = r._run_lifecycle, []
+
+        def pass_and_snapshot():
+            run()
+            if not first:
+                first.append((r.telemetry.summary(),
+                              [t.clone() for t in state_fields(r)],
+                              r.state.active.clone()))
+                if stop:
+                    raise FirstPass
+        r._run_lifecycle = pass_and_snapshot
+        try:
+            r.ingest(x)
+        except FirstPass:
+            pass
+    return r, first[0]
+
+
+COUNTS = ("accepted", "created", "pruned", "merged", "spawned", "active_k")
+GRID_CELLS = ((32, 256, "the TPU kernel's design point "
+               "(src/repro/kernels/figmn_stream.py:4-6)"),
+              (32, 64, "figmn_runtime's cell (benchmarks/figmn_runtime.py:27)"))
+
+
+def phase_resident_grid(dev):
+    """phase 4b: the resident path on pools beyond one block, through
+    StreamRuntime with figmn_runtime's lifecycle; the runtime against the
+    same runtime with the plain loop in the kernels' place; the "scan"
+    body these pools ran before."""
+    from repro_torch.core import figmn
+    from repro_torch.core.types import FIGMNConfig
+    from repro_torch.kernels import _build, figmn_stream
+    from repro_torch.stream import (LifecycleConfig, RuntimeConfig,
+                                    StreamRuntime)
+
+    out, main_launches = {}, None
+    n, chunk, n_scan = 2048, 128, 384
+    for k, d, what in GRID_CELLS:
+        # figmn_runtime's stream (k/4 modes) and FIGMNConfig
+        x = resident_stream(n, d, seed=0, modes=max(k // 4, 2))
+        cfg = FIGMNConfig(kmax=k, dim=d, beta=0.1, delta=1.0, vmin=50.0,
+                          spmin=1.0, update_mode="exact",
+                          sigma_ini=figmn.sigma_from_data(
+                              torch.from_numpy(x), 1.0).numpy())
+        rc = RuntimeConfig(chunk=chunk, device=str(dev),
+                           lifecycle=LifecycleConfig(k_budget=k, every=8))
+        plan = figmn_stream.resident_plan(k, d, dev)
+        StreamRuntime(cfg, rc).ingest(x[:2 * chunk])          # warm-up
+        rt = StreamRuntime(cfg, rc)
+        log(f"resident grid: {what}: N={n} D={d} K={k} chunk={chunk}, "
+            f"lifecycle every 8 chunks to {k}: path {rt.path!r}, {plan}")
+        if rt.path != "vmem" or plan is None:
+            raise AssertionError(f"'auto' resolved to {rt.path!r} with plan "
+                                 f"{plan}, not the grid")
+        _build.reset_launches()
+        summary, s = timed(lambda: rt.ingest(x))
+        launches = dict(_build.LAUNCHES)
+        vmem = [m.latency_s * 1e3 for m in rt.telemetry.history
+                if m.path == "vmem"]
+        log(f"  {n / s:.1f} points/s ({s:.3f} s), a resident chunk "
+            f"{statistics.median(vmem):.3f} ms (median of {len(vmem)}), "
+            + ", ".join(f"{c} {summary[c]}" for c in COUNTS)
+            + f", launches {launches}")
+        if launches["figmn_stream_grid"] != len(vmem) or not vmem:
+            raise AssertionError("the resident chunks missed the grid kernel")
+        if main_launches is None:
+            main_launches = launches
+
+        plain, plain_first = replay(cfg, rc, x, plain_body)
+        ps = plain.telemetry.summary()
+        act = plain.state.active
+        if not torch.equal(act, rt.state.active):
+            raise AssertionError("active slots differ from the plain replay")
+        # the faulty replays stop after the first lifecycle pass, where the
+        # fault of their first resident chunk already shows
+        pf_sum, pf_state, pf_act = plain_first
+        controls = {}
+        for kind in ("drop", "skip"):
+            _, (bs, b_state, b_act) = replay(cfg, rc, x,
+                                             faulty_body(plan, kind),
+                                             stop=True)
+            moved = {c: (bs[c], pf_sum[c]) for c in COUNTS
+                     if bs[c] != pf_sum[c]}
+            controls[kind] = (b_state if torch.equal(b_act, pf_act)
+                              else None, moved)
+        check_resident(f"resident grid K={k} D={d} vs plain replay",
+                       state_fields(rt), state_fields(plain), act,
+                       resident_limit(n, d), controls,
+                       same={c: (summary[c], ps[c]) for c in COUNTS},
+                       control_want=(pf_state, pf_act))
+
+        # where a resident chunk's time goes: 4 more chunks into the formed
+        # runtime (and its end-of-call lifecycle pass) under the profiler
+        by_kernel, wall_us = device_time_by_kernel(
+            lambda: rt.ingest(x[:4 * chunk]))
+        busy = sum(by_kernel.values())
+        grid_us = sum(v for k_, v in by_kernel.items()
+                      if "figmn_stream_grid" in k_)
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]
+        log(f"  profiled 4 resident chunks: wall {wall_us:.0f} us, device "
+            f"busy {busy:.0f} us ({busy / wall_us:.3f}), figmn_stream_grid "
+            f"{grid_us:.0f} us ({grid_us / wall_us:.3f} of the wall)")
+        for k_, v in top:
+            log(f"    {v:10.1f} us  {k_[:90]}")
+        rs = StreamRuntime(cfg, dataclasses.replace(rc, path="scan"))
+        rs.ingest(x[:chunk])                                   # warm-up
+        rs = StreamRuntime(cfg, dataclasses.replace(rc, path="scan"))
+        _, s_scan = timed(lambda: rs.ingest(x[:n_scan]))
+        log(f"  before this slice, 'scan': {n_scan / s_scan:.1f} points/s "
+            f"over {n_scan} points; the grid path {n / s:.1f} "
+            f"({n / s / (n_scan / s_scan):.1f}x)")
+        out[f"k{k}_d{d}"] = dict(
+            points_per_s=n / s, vmem_chunk_ms=statistics.median(vmem),
+            scan_points_per_s=n_scan / s_scan, plan=dataclasses.asdict(plan),
+            profile=dict(chunks=4, wall_us=wall_us, device_busy_us=busy,
+                         grid_kernel_us=grid_us,
+                         top_kernels_us=dict(top)),
+            grid_launches=launches["figmn_stream_grid"],
+            **{c: summary[c] for c in COUNTS})
+    return main_launches, out
 
 
 # ---------------------------------------------------------------------------
@@ -1218,22 +1613,37 @@ def main() -> int:
     log(f"kernels built and loaded in {build_s:.2f} s "
         f"(nvcc {_build.build_seconds} s)\n{_build.build_log}")
 
+    phase_s = {"build": build_s}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phase_s[name] = time.perf_counter() - t
+        log(f"[{name}: {phase_s[name]:.2f} s]")
+        return out
+
     warm = {}
-    rows = phase_kernels(dev, warm)
-    main_launches, full = phase_full_width(dev)
-    res_launches, res = phase_resident(dev)
-    sparse_launches, sparse = phase_sparse(dev)
+    rows = phase("kernels", phase_kernels, dev, warm)
+    main_launches, full = phase("full_width", phase_full_width, dev)
+    res_launches, res = phase("resident", phase_resident, dev)
+    grid_launches, resident_grid = phase("resident_grid",
+                                         phase_resident_grid, dev)
+    sparse_launches, sparse = phase("sparse", phase_sparse, dev)
     sparse["warm_l2_ms"] = warm
-    flash_row, flash_small = phase_flash(dev)
+    flash_row, flash_small = phase("flash", phase_flash, dev)
     rows["flash_fwd"] = flash_row
-    cfg, params = danube_params(dev)
-    score_launches, scoring = phase_scoring(dev, cfg, params)
-    gen_launches, generation = phase_generation(dev, cfg, params)
+    cfg, params = phase("danube_params", danube_params, dev)
+    score_launches, scoring = phase("scoring", phase_scoring, dev, cfg,
+                                    params)
+    gen_launches, generation = phase("generation", phase_generation, dev,
+                                     cfg, params)
     del params
     rows["flash_fwd"]["launches"] = score_launches["flash_fwd"]
     rows["matvec2"]["launches"] = main_launches["matvec2"]
     rows["rank2_apply"]["launches"] = main_launches["rank2_apply"]
     rows["figmn_stream"]["launches"] = res_launches["figmn_stream"]
+    rows["figmn_stream_grid"]["launches"] = \
+        grid_launches["figmn_stream_grid"]
     # mahalanobis has no runtime caller (nor has the reference's kernel):
     # its count from the sparse run is 0
     for name in ("gathered_matvec", "scatter_apply", "mahalanobis"):
@@ -1243,13 +1653,18 @@ def main() -> int:
     print(json.dumps({"kernels": [{k_: r[k_] for k_ in keys}
                                   for r in rows.values()],
                       "full_width": full, "resident": res,
+                      "resident_grid": resident_grid,
+                      "figmn_stream_grid": {k_: rows["figmn_stream_grid"][k_]
+                                            for k_ in ("plan", "g3_small_ms",
+                                                       "barriers_per_launch")},
                       "sparse": sparse, "flash_small": flash_small,
                       "flash": {k_: flash_row[k_] for k_ in (
                           "warm_l2_ms", "visible_pairs", "library_call",
                           "library_expanded_kv_ms", "shape")},
                       "scoring": scoring, "generation": generation,
                       "generation_launches": gen_launches,
-                      "build_s": build_s}))
+                      "build_s": build_s, "phase_s": phase_s,
+                      "script_s": time.perf_counter() - T_START}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

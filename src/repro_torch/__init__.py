@@ -5,10 +5,12 @@ A port of the JAX package ``repro``, which stays the reference; the layout
 and names mirror it.  This package imports torch, numpy and the standard
 library only.
 
-  core      the precision-form learner (types, figmn) and eq. 27 inference
+  core      the precision-form learner (types, figmn), eq. 27 inference and
+            mixture merging
   kernels   CUDA kernels (csrc/*.cu, built with nvcc at first use and bound
             with ctypes) + their plain PyTorch versions (ref.py)
-  stream    StreamRuntime: chunked ingestion (scan/vmem), telemetry
+  stream    StreamRuntime: chunked ingestion (scan/vmem/sparse), the pool
+            lifecycle, telemetry
   api       Mixture / MixtureSpec on the "runtime" tier
   interop   configs, mixture states and LM parameters to and from numpy
   data      deterministic synthetic streams and LM tokens

@@ -1,9 +1,9 @@
 """Architecture registry: ``get(arch_id)`` / ``get_smoke(arch_id)``.
 
 The registry keeps the reference's ten arch ids.  Only h2o-danube-1.8b is
-ported so far; any other id raises ``NotImplementedError`` (ROADMAP.md
-queue 1 item 12 lists the families still to port) and never falls back to
-another model.
+ported so far; any other id raises ``NotImplementedError`` (the families
+still to port are listed in ROADMAP.md queue 1, "The other LM families")
+and never falls back to another model.
 """
 from __future__ import annotations
 
@@ -31,8 +31,8 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in _PORTED:
         raise NotImplementedError(
-            f"{arch!r} is not ported to repro_torch yet (ROADMAP.md queue 1 "
-            "item 12); ported: " + ", ".join(_PORTED))
+            f"{arch!r} is not ported to repro_torch yet (ROADMAP.md queue 1, "
+            "'The other LM families'); ported: " + ", ".join(_PORTED))
     return _PORTED[arch]
 
 

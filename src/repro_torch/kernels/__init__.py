@@ -2,7 +2,8 @@
 plain PyTorch version.
 
   figmn_update.py  matvec2 + rank2_apply (the per-point Λ passes)
-  figmn_stream.py  the resident whole-chunk fit (state in shared memory)
+  figmn_stream.py  the resident whole-chunk fit (state in shared memory:
+                   one block, or a cooperative grid of blocks)
   figmn_sparse.py  gathered_matvec + scatter_apply (the top-C shortlist)
   mahalanobis.py   batched squared Mahalanobis distance
   flash_attention.py  the LM's flash-attention forward

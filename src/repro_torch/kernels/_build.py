@@ -35,22 +35,30 @@ NVCC_FLAGS = ("-std=c++17", "-O3", ARCH, "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 LAUNCHES = {"matvec2": 0, "rank2_apply": 0, "figmn_stream": 0,
-            "gathered_matvec": 0, "scatter_apply": 0, "mahalanobis": 0,
-            "flash_fwd": 0}
+            "figmn_stream_grid": 0, "gathered_matvec": 0, "scatter_apply": 0,
+            "mahalanobis": 0, "flash_fwd": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 _SIGNATURES = {
     "figmn_error_string": ([_I], ctypes.c_char_p),
     "figmn_device_smem_optin": ([_I], _I),
+    "figmn_device_sm_count": ([_I], _I),
+    "figmn_device_coop_launch": ([_I], _I),
     "figmn_matvec2": ([_P, _P, _P, _P, _P, _I, _I, _P], _I),
     "figmn_rank2_apply": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _P], _I),
-    "figmn_stream_smem_bytes": ([_I, _I], ctypes.c_longlong),
+    "figmn_stream_smem_bytes": ([_I, _I], _L),
     "figmn_stream": ([_P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P, _P,
                       _P, _P, _I, _I, _P], _I),
+    "figmn_stream_grid_smem_bytes": ([_I, _I, _I], _L),
+    "figmn_stream_grid_blocks_per_sm": ([_I, _L], _I),
+    "figmn_stream_grid": ([_P, _I, _P, _P, _P, _P, _P, _F, _F, _F, _P, _P,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P], _I),
     "figmn_gathered_matvec": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "figmn_scatter_apply": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     "figmn_mahalanobis": ([_P, _P, _P, _I, _I, _P], _I),
-    "figmn_flash_fwd_smem_bytes": ([_I], ctypes.c_longlong),
+    "figmn_flash_fwd_smem_bytes": ([_I], _L),
     "figmn_flash_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _I, _P], _I),
 }
@@ -203,12 +211,32 @@ def on_cuda(device: torch.device) -> bool:
     raise ValueError(f"no kernel or plain version for device {device}")
 
 
+def device_index(device: torch.device) -> int:
+    return device.index if device.index is not None \
+        else torch.cuda.current_device()
+
+
 def smem_optin(device: torch.device) -> int:
     """Per-block opt-in shared memory of ``device`` in bytes, queried from
     the device (227 KB on H100)."""
-    index = device.index if device.index is not None \
-        else torch.cuda.current_device()
-    v = lib().figmn_device_smem_optin(index)
+    v = lib().figmn_device_smem_optin(device_index(device))
     if v <= 0:
         raise RuntimeError(f"could not query shared memory of {device}")
     return v
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of ``device`` (132 on H100 SXM)."""
+    v = lib().figmn_device_sm_count(device_index(device))
+    if v <= 0:
+        raise RuntimeError(f"could not query the SM count of {device}")
+    return v
+
+
+def coop_launch(device: torch.device) -> bool:
+    """Whether ``device`` supports cooperative launches (a grid whose
+    blocks are guaranteed co-resident)."""
+    v = lib().figmn_device_coop_launch(device_index(device))
+    if v < 0:
+        raise RuntimeError(f"could not query cooperative launch on {device}")
+    return v == 1

@@ -5,7 +5,7 @@ Pure functions over explicit parameter dicts; layer weights arrive stacked
 over the layer axis.  Numerics as in the reference: activations and
 params in cfg.dtype, attention logits + softmax and the final logits in
 float32.  Not ported yet: ``apply_mrope`` (vlm) and the mesh branch of
-``attention_trainpath`` (ROADMAP.md queue 1 item 11).
+``attention_trainpath`` (ROADMAP.md queue 1, "Sharding").
 """
 from __future__ import annotations
 

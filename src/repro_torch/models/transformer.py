@@ -13,7 +13,8 @@ Entry points (all on tensors over an explicit parameter dict):
   ``decode_step``  — one token with the (full or ring-buffer) cache
 Both cached paths use the plain chunked ``layers.attention``, as the
 reference's do.  Only the dense family is ported: moe, mla, hybrid, ssm,
-encdec and vlm raise ``NotImplementedError`` (ROADMAP.md queue 1 item 12).
+encdec and vlm raise ``NotImplementedError`` (ROADMAP.md queue 1,
+"The other LM families").
 Nothing here builds a graph for gradients: the callers run it under
 ``torch.no_grad()`` (training and the backward kernels come later).
 """
@@ -36,8 +37,8 @@ def _check_family(cfg: ModelConfig) -> None:
             or cfg.rope_style == "mrope":
         raise NotImplementedError(
             f"{cfg.name!r} (family {cfg.family!r}) is not ported to "
-            "repro_torch yet: only the dense family is (ROADMAP.md queue 1 "
-            "item 12)")
+            "repro_torch yet: only the dense family is (ROADMAP.md queue 1, "
+            "'The other LM families')")
 
 
 # =========================================================================

@@ -6,10 +6,13 @@ which body consumes a chunk:
 
   "scan" — ``core.figmn.fit`` over the chunk (creation and pruning inline,
            so chunked ingestion equals one ``fit`` over the whole stream);
-  "vmem" — the resident CUDA kernel ``kernels.figmn_stream``: the whole
-           (K, D, D) working set stays in one block's shared memory for the
-           chunk.  Creation events are no-ops inside it.  (The name is the
-           reference's; on the card the resident memory is shared memory.)
+  "vmem" — the resident CUDA kernels ``kernels.figmn_stream``: the whole
+           (K, D, D) working set stays in shared memory for the chunk, in
+           one block when it fits one, else spread over a cooperative grid
+           of blocks (``figmn_stream.grid_plan``).  Creation events are
+           no-ops inside them; with a lifecycle the runtime buffers the
+           gate failures for the spawn pass.  (The name is the reference's;
+           on the card the resident memory is shared memory.)
   "sparse" — the top-C shortlist body ``core.shortlist.fit_sparse``: per
            point an O(K·D) bound pass selects C components and the exact
            O(D²) work runs on those C rows (the ``gathered_matvec`` and
@@ -27,34 +30,51 @@ import torch
 from repro_torch.core import figmn, shortlist
 from repro_torch.core.types import (FIGMNConfig, FIGMNState, Tensor,
                                     gate_threshold, resolve_device)
-from repro_torch.kernels import _build, figmn_stream
+from repro_torch.kernels import figmn_stream
 
 PATHS = ("auto", "scan", "vmem", "sparse")
 
+#: The reference's budget for the resident kernel (``K·D²·4`` bytes of Λ),
+#: what ``repro.stream.ingest`` assumes a TPU core's VMEM holds.
+DEFAULT_VMEM_BUDGET = 12 * 2 ** 20
+
 
 def _resident_fits(cfg: FIGMNConfig, device: torch.device,
-                   smem_limit: Optional[int]) -> Tuple[bool, int, int]:
-    need = figmn_stream.smem_bytes(cfg.kmax, cfg.dim)
-    limit = smem_limit if smem_limit is not None \
-        else _build.smem_optin(device)
-    return need <= limit, need, limit
+                   smem_limit: Optional[int], max_blocks: Optional[int]
+                   ) -> Tuple[bool, str]:
+    """Whether the card holds the pool resident (one block or a grid),
+    and why not."""
+    try:
+        figmn_stream.resident_plan(cfg.kmax, cfg.dim, device, smem_limit,
+                                   max_blocks)
+    except ValueError as e:
+        return False, str(e)
+    return True, ""
 
 
-def select_path(cfg: FIGMNConfig, *, requested: str = "auto", device=None,
-                smem_limit: Optional[int] = None) -> str:
+def select_path(cfg: FIGMNConfig, *,
+                vmem_budget: Optional[int] = DEFAULT_VMEM_BUDGET,
+                requested: str = "auto", device=None,
+                smem_limit: Optional[int] = None,
+                max_blocks: Optional[int] = None) -> str:
     """Choose the per-chunk path ("scan" | "vmem" | "sparse").
 
     "auto" picks the shortlist body whenever the config enables one
     (cfg.shortlist_c > 0), as the reference does; a forced "sparse" needs
     cfg.shortlist_c > 0 and raises otherwise.  Else, on a CUDA device,
-    "auto" picks the resident kernel when the update mode
-    is the PSD-safe "exact" one (the kernel's only mode) and its working
-    set (``figmn_stream.smem_bytes``: K·D²·4 bytes plus the small state)
-    fits the per-block opt-in shared memory queried from the device
-    (``smem_limit`` overrides the query); elsewhere "scan".  A forced
-    "vmem" that cannot run raises instead of falling back.  On the CPU a
-    forced "vmem" runs the plain resident loop.
+    "auto" picks the resident kernels iff the update mode is the PSD-safe
+    "exact" one (their only mode), the reference's working set
+    ``kmax·D²·4`` bytes is within ``vmem_budget`` (None: the 12 MiB
+    ``DEFAULT_VMEM_BUDGET``), and the card holds the pool resident: in one
+    block's shared memory or in a grid of co-resident blocks
+    (``figmn_stream.resident_plan``; ``smem_limit`` and ``max_blocks``
+    override the per-block shared memory and the co-resident block count
+    queried from the device).  Elsewhere "scan".  A forced "vmem" that the
+    card cannot hold raises instead of falling back.  On the CPU "auto" is
+    "scan" and a forced "vmem" runs the plain resident loop.
     """
+    if vmem_budget is None:
+        vmem_budget = DEFAULT_VMEM_BUDGET
     if requested == "sparse" or (requested == "auto"
                                  and cfg.shortlist_c > 0):
         if cfg.shortlist_c <= 0:
@@ -69,14 +89,14 @@ def select_path(cfg: FIGMNConfig, *, requested: str = "auto", device=None,
         if cfg.update_mode != "exact":
             raise ValueError("path 'vmem' runs the exact update mode only")
         if device.type == "cuda":
-            fits, need, limit = _resident_fits(cfg, device, smem_limit)
+            fits, why = _resident_fits(cfg, device, smem_limit, max_blocks)
             if not fits:
-                raise ValueError(
-                    f"path 'vmem' needs {need} bytes of shared memory, "
-                    f"{device} gives a block {limit}")
+                raise ValueError(f"path 'vmem' cannot hold the pool on "
+                                 f"{device}: {why}")
         return "vmem"
     if (device.type == "cuda" and cfg.update_mode == "exact"
-            and _resident_fits(cfg, device, smem_limit)[0]):
+            and cfg.kmax * cfg.dim * cfg.dim * 4 <= vmem_budget
+            and _resident_fits(cfg, device, smem_limit, max_blocks)[0]):
         return "vmem"
     return "scan"
 

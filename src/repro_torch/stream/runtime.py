@@ -1,30 +1,32 @@
 """StreamRuntime — the orchestrator that owns the online loop (counterpart of
 ``repro.stream.runtime``).
 
-Chunked ingestion (ingest.py) and per-chunk telemetry (telemetry.py) over
-one mixture state on one device.  Invariant (tested): ``ingest`` over any
-chunking equals ONE ``core.figmn.fit`` over the concatenated stream (ONE
-``core.shortlist.fit_sparse`` on the "sparse" path).  Reads follow the
-resolved path: a shortlisted runtime scores and predicts through the
-shortlisted reads, a dense one through the dense reads.
+Chunked ingestion (ingest.py), pool lifecycle (lifecycle.py) and per-chunk
+telemetry (telemetry.py) over one mixture state on one device.  Invariant
+(tested): with the lifecycle off, ``ingest`` over any chunking equals ONE
+``core.figmn.fit`` over the concatenated stream (ONE
+``core.shortlist.fit_sparse`` on the "sparse" path); with it on, chunked
+equals one-shot across ``ingest`` calls.  Reads follow the resolved path: a
+shortlisted runtime scores and predicts through the shortlisted reads, a
+dense one through the dense reads.
 
-This slice ports the main path only: the lifecycle, drift, checkpoint,
-cost-table, telemetry-anomaly and chunk-retry options of the reference
-wait for later slices and are not fields here; the obs metrics and spans
-are left out.
+The drift, checkpoint, cost-table, telemetry-anomaly and chunk-retry
+options of the reference wait for later slices and are not fields here;
+the obs metrics and spans are left out.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import figmn, inference, shortlist
 from repro_torch.core.types import (FIGMNConfig, FIGMNState, Tensor,
-                                    resolve_device)
-from repro_torch.stream import ingest, telemetry
+                                    gate_threshold, resolve_device)
+from repro_torch.stream import ingest, lifecycle, telemetry
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +38,18 @@ class RuntimeConfig:
                   ``ingest.select_path``; "sparse", the top-C shortlist
                   body, needs cfg.shortlist_c > 0 and is what "auto" picks
                   whenever the config enables a shortlist).
+    lifecycle:    pool-management policy (``lifecycle.LifecycleConfig``);
+                  None disables it, and creation and §2.3 pruning then
+                  happen inline in the scan body, matching one-shot
+                  ``figmn.fit``.  With a policy, inline pruning waits for
+                  the pass, and on the "vmem" path the points that fail
+                  the gate against the chunk's starting mixture are
+                  buffered for the pass to spawn.
+    vmem_budget:  bytes of Λ (``kmax·D²·4``) up to which "auto" picks the
+                  resident kernels; None is the reference's 12 MiB
+                  ``ingest.DEFAULT_VMEM_BUDGET`` (its fallback where the
+                  backend reports no VMEM).  The card must also hold the
+                  pool (``ingest.select_path``).
     device:       the torch device the state lives on; None means CUDA
                   (and raises where there is no card).
     on_nonfinite: NaN/Inf row policy of ``ingest.finite_guard``: "drop"
@@ -43,6 +57,8 @@ class RuntimeConfig:
     """
     chunk: int = 256
     path: str = "auto"
+    lifecycle: Optional[lifecycle.LifecycleConfig] = None
+    vmem_budget: Optional[int] = None
     device: Optional[str] = None
     on_nonfinite: str = "drop"
 
@@ -57,7 +73,8 @@ class StreamRuntime:
         self.device = resolve_device(rcfg.device)
         self.state: FIGMNState = figmn.init_state(cfg, self.device)
         self.path = ingest.select_path(cfg, requested=rcfg.path,
-                                       device=self.device)
+                                       device=self.device,
+                                       vmem_budget=rcfg.vmem_budget)
         self.chunk_idx = 0
         # Bumped on every state mutation: the factor cache's key.
         self.state_epoch = 0
@@ -68,9 +85,15 @@ class StreamRuntime:
         # no sync of their own.
         self._n_active = 0
         self._n_created = 0
-        # The vmem accept counter stays on the device until ``ingest`` ends.
+        self.buffer = lifecycle.FailureBuffer(
+            rcfg.lifecycle.buffer_cap if rcfg.lifecycle else 0, cfg.dim)
+        self._thresh = gate_threshold(cfg)
+        # Deferred device→host pulls: the vmem accept counter and the
+        # gate-failure masks stay on the device until a lifecycle boundary
+        # (or the end of ``ingest`` for the counter).
         self._accepted_dev = torch.zeros((), dtype=torch.int32,
                                          device=self.device)
+        self._pending_fails: List[Tuple[Tensor, np.ndarray]] = []
 
     # ------------------------------------------------------------------
     # ingestion
@@ -89,24 +112,36 @@ class StreamRuntime:
                     continue
                 xc_dev = torch.as_tensor(xh, dtype=self.cfg.dtype,
                                          device=self.device)
-            self._ingest_chunk(xc_dev)
+            self._ingest_chunk(xc_dev, xh)
+        if self.rcfg.lifecycle is not None:
+            self._run_lifecycle()
         self._fold_accept_counter()
         return self.telemetry.summary()
 
-    def _ingest_chunk(self, xc: Tensor) -> None:
+    def _ingest_chunk(self, xc: Tensor, xc_host: np.ndarray) -> None:
+        cfg, lcfg = self.cfg, self.rcfg.lifecycle
         t0 = time.perf_counter()
+        formed = self._n_active > 0
         path = self.path
-        if path == "vmem" and self._n_active == 0:
+        if path == "vmem" and not formed:
             path = "scan"            # the kernel cannot create the first slot
         if path == "vmem":
-            self.state, nacc = ingest.fit_chunk_vmem(self.cfg, self.state, xc)
+            if lcfg is not None:
+                # prequential: the points that fail the gate against the
+                # chunk's starting mixture, kept on the device until the
+                # next lifecycle pass
+                fails, _ = ingest.chunk_stats(cfg, self.state, xc,
+                                              self._thresh)
+                self._pending_fails.append((fails, xc_host))
+            self.state, nacc = ingest.fit_chunk_vmem(cfg, self.state, xc)
             self._accepted_dev += nacc                  # stays on the device
-        elif path == "sparse":
-            self.state = ingest.fit_chunk_sparse(
-                self.cfg, self.state, xc, do_prune=self.cfg.spmin > 0)
         else:
-            self.state = ingest.fit_chunk_scan(
-                self.cfg, self.state, xc, do_prune=self.cfg.spmin > 0)
+            # inline creation/§2.3 pruning ⇔ one-shot fit; with a lifecycle
+            # pruning waits for the pass
+            do_prune = lcfg is None and cfg.spmin > 0
+            body = (ingest.fit_chunk_sparse if path == "sparse"
+                    else ingest.fit_chunk_scan)
+            self.state = body(cfg, self.state, xc, do_prune)
         self.state_epoch += 1
         # The one per-chunk device sync the telemetry needs; it also fences
         # the chunk, so latency_s includes the device compute on every path.
@@ -118,12 +153,41 @@ class StreamRuntime:
             active_k=self._n_active, created=self._n_created - n_created0,
             path=path, latency_s=time.perf_counter() - t0))
         self.chunk_idx += 1
+        if (lcfg is not None and lcfg.every > 0
+                and self.chunk_idx % lcfg.every == 0):
+            self._run_lifecycle()
+
+    # ------------------------------------------------------------------
+    # lifecycle plumbing
+    # ------------------------------------------------------------------
+
+    def _drain_pending_fails(self) -> None:
+        """Bring the deferred gate-failure masks to the host and push their
+        rows into the spawn buffer."""
+        for fails_dev, xc_host in self._pending_fails:
+            fails = fails_dev.cpu().numpy()
+            if fails.any():
+                self.buffer.push(xc_host[fails])
+        self._pending_fails.clear()
 
     def _fold_accept_counter(self) -> None:
+        """Pull the device-side vmem accept counter into the telemetry: at
+        lifecycle boundaries and at the end of ``ingest``, never per
+        chunk."""
         n = int(self._accepted_dev)
         if n:
             self.telemetry.add_accepted(n)
             self._accepted_dev.zero_()
+
+    def _run_lifecycle(self) -> None:
+        self._drain_pending_fails()
+        self._fold_accept_counter()
+        self.state, rep = lifecycle.run_pass(self.cfg, self.rcfg.lifecycle,
+                                             self.state, self.buffer)
+        self.state_epoch += 1
+        self.telemetry.add_lifecycle(rep.pruned, rep.merged, rep.spawned)
+        self._n_active = rep.active_k
+        self._n_created = int(self.state.n_created)
 
     # ------------------------------------------------------------------
     # reads

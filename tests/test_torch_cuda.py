@@ -8,8 +8,8 @@ on a machine with the card and no JAX:
 Tolerances: a matvec's two summation orders differ by at most 2·D·u·Σ|terms|
 (u = 2⁻²⁴); rank2_apply rounds exactly as its plain version (same
 association, no multiply-add contraction), so 4 ulps of the largest entry;
-the resident kernel over a chunk uses tests/test_figmn_stream_kernel.py's
-tolerances (1e-3).  gathered_matvec is a matvec (the same bound);
+the resident kernels over a chunk (one block, and the grid at a forced
+G ≥ 3) use tests/test_figmn_stream_kernel.py's tolerances (1e-3).  gathered_matvec is a matvec (the same bound);
 mahalanobis nests two such sums (γ_D on each, on precision-like Λ);
 scatter_apply equals its plain version bit for bit and leaves the K − C
 other rows bit-equal.  flash_fwd: per row, ‖out − plain‖₂ within
@@ -90,15 +90,147 @@ def test_stream_kernel_matches_plain(cuda, k, d):
 
 @pytest.mark.cuda
 def test_stream_kernel_refuses_a_pool_beyond_shared_memory(cuda):
-    k, d = 32, 64
+    """A pool beyond one block goes to the grid; one beyond the grid's
+    capacity (32 MiB of Λ: more than the card's co-resident blocks hold)
+    raises instead of falling back."""
+    k, d = 128, 256
     assert figmn_stream.smem_bytes(k, d) > _build.smem_optin(cuda)
     z = torch.zeros((k, d), device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match="co-resident"):
         figmn_stream.figmn_stream(
             torch.zeros((4, d), device=cuda), z,
             torch.zeros((k, d, d), device=cuda), z[:, 0].contiguous(),
             z[:, 0].contiguous(), torch.zeros(k, dtype=torch.int32,
                                               device=cuda), 1.0, d)
+    assert _build.LAUNCHES == before
+
+
+def _formed_stream_args(cuda, k, d, n, seed):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0, 6.0, (3, d))
+    x = (centers[rng.integers(0, 3, 150 + n)]
+         + rng.normal(0, 1.0, (150 + n, d))).astype(np.float32)
+    xt = torch.from_numpy(x).to(cuda)
+    cfg = FIGMNConfig(kmax=k, dim=d, beta=0.1, delta=1.0, vmin=1e9,
+                      spmin=0.0, update_mode="exact",
+                      sigma_ini=figmn.sigma_from_data(xt, 1.0))
+    st = figmn.fit(cfg, figmn.init_state(cfg, cuda), xt[:150])
+    return st, (xt[150:].contiguous(), st.mu, st.lam, st.logdet, st.sp,
+                st.active.to(torch.int32), gate_threshold(cfg), d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,d,blocks,n", [(4, 8, 3, 250), (16, 32, 3, 250),
+                                          (16, 32, 7, 250), (5, 37, 4, 250),
+                                          (16, 32, 5, 1)])
+def test_stream_grid_kernel_matches_plain(cuda, k, d, blocks, n):
+    """The grid kernel at a forced G ≥ 3 (rows straddle components; D = 37
+    is ragged): the accepts equal, the state within the one-block kernel's
+    tolerances of the plain version, two launches bit-equal."""
+    st, args = _formed_stream_args(cuda, k, d, n, seed=d + blocks)
+    plan = figmn_stream.grid_plan(k, d, _build.smem_optin(cuda),
+                                  figmn_stream.grid_capacity(
+                                      cuda, _build.smem_optin(cuda)),
+                                  blocks=blocks)
+    assert plan.blocks == blocks
+    assert _build.lib().figmn_stream_grid_smem_bytes(
+        plan.rows, plan.nc, d) == plan.smem_bytes
+    before = _build.LAUNCHES["figmn_stream_grid"]
+    got = figmn_stream.figmn_stream(*args, plan=plan)
+    again = figmn_stream.figmn_stream(*args, plan=plan)
+    assert _build.LAUNCHES["figmn_stream_grid"] == before + 2
+    want = ref.figmn_stream_ref(*args)
+    assert int(got[4][0]) == int(want[4][0]) > 0
+    m = st.active
+    for g_, w_ in zip(got[:4], want[:4]):
+        torch.testing.assert_close(g_[m], w_[m], rtol=1e-3, atol=1e-3)
+    for g_, a_ in zip(got, again):
+        assert torch.equal(g_, a_)
+
+
+@pytest.mark.cuda
+def test_runtime_runs_a_pool_beyond_one_block_on_the_grid(cuda):
+    """(K = 32, D = 64): "auto" resolves to "vmem", and the chunks after
+    the first run the grid kernel."""
+    from repro_torch.stream import (LifecycleConfig, RuntimeConfig,
+                                    StreamRuntime)
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0, 6.0, (8, 64))
+    x = (centers[rng.integers(0, 8, 512)]
+         + rng.normal(0, 1.0, (512, 64))).astype(np.float32)
+    cfg = FIGMNConfig(kmax=32, dim=64, beta=0.1, delta=1.0, vmin=50.0,
+                      spmin=1.0, update_mode="exact",
+                      sigma_ini=figmn.sigma_from_data(torch.from_numpy(x),
+                                                      1.0).numpy())
+    rt = StreamRuntime(cfg, RuntimeConfig(
+        chunk=128, device="cuda",
+        lifecycle=LifecycleConfig(k_budget=32, every=8)))
+    assert rt.path == "vmem"
+    before = _build.LAUNCHES["figmn_stream_grid"]
+    summary = rt.ingest(x)
+    assert _build.LAUNCHES["figmn_stream_grid"] == before + 3
+    assert summary["accepted"] > 0 and summary["active_k"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path,blocks", [("scan", None), ("vmem", None),
+                                         ("vmem", 3)])
+def test_runtime_lifecycle_prunes_and_merges_on_the_card(cuda, monkeypatch,
+                                                         path, blocks):
+    """The lifecycle's prune, spawn and merge on CUDA tensors: a budget
+    below the stream's 6 modes, spmin > 0 and isolated outliers that make
+    short-lived slots.  The card's runtime (the kernels; ``blocks`` forces
+    the grid) against the same runtime on the CPU (plain versions, held
+    against the reference in tests/test_torch_lifecycle.py): every count
+    equal, the state within the resident kernels' 1e-3."""
+    from repro_torch.stream import (LifecycleConfig, RuntimeConfig,
+                                    StreamRuntime)
+    rng = np.random.default_rng(4)
+    centers = rng.normal(0, 6.0, (6, 6))
+    x = centers[rng.integers(0, 6, 256)] + rng.normal(0, 1.0, (256, 6))
+    x[::16] = rng.normal(0, 30.0, (16, 6))
+    x = x.astype(np.float32)
+    cfg = FIGMNConfig(kmax=8, dim=6, beta=0.1, delta=1.0, vmin=20.0,
+                      spmin=3.0, update_mode="exact", backend="pallas",
+                      sigma_ini=figmn.sigma_from_data(torch.from_numpy(x),
+                                                      1.0).numpy())
+    rc = RuntimeConfig(chunk=32, path=path, device="cpu",
+                       lifecycle=LifecycleConfig(k_budget=3, every=2,
+                                                 spawn_max=4))
+    cpu = StreamRuntime(cfg, rc)
+    want = cpu.ingest(x)
+    if blocks:
+        smem = _build.smem_optin(cuda)
+        cap = figmn_stream.grid_capacity(cuda, smem)
+        monkeypatch.setattr(
+            figmn_stream, "resident_plan",
+            lambda k, d, device, *_: figmn_stream.grid_plan(
+                k, d, smem, cap, blocks=blocks))
+    before = dict(_build.LAUNCHES)
+    rt = StreamRuntime(cfg, dataclasses.replace(rc, device="cuda"))
+    got = rt.ingest(x)
+    launched = {k_: _build.LAUNCHES[k_] - before[k_] for k_ in before}
+    assert launched["rank2_apply"] > 0                # the spawn replay
+    if path == "vmem":
+        kernel = "figmn_stream_grid" if blocks else "figmn_stream"
+        assert launched[kernel] == sum(m.path == "vmem"
+                                       for m in rt.telemetry.history) > 0
+        assert got["spawned"] > 0 and got["accepted"] > 0
+    assert got["pruned"] > 0 and got["merged"] > 0
+    for key in ("chunks", "total_points", "active_k", "created", "pruned",
+                "merged", "spawned", "accepted"):
+        assert got[key] == want[key], key
+    assert [(m.path, m.pruned, m.merged, m.spawned, m.active_k)
+            for m in rt.telemetry.history] \
+        == [(m.path, m.pruned, m.merged, m.spawned, m.active_k)
+            for m in cpu.telemetry.history]
+    m = cpu.state.active
+    assert torch.equal(rt.state.active.cpu(), m)
+    for f in ("mu", "lam", "logdet", "sp", "v"):
+        torch.testing.assert_close(getattr(rt.state, f).cpu()[m],
+                                   getattr(cpu.state, f)[m],
+                                   rtol=1e-3, atol=1e-3, msg=f)
 
 
 @pytest.mark.cuda

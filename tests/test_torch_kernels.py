@@ -26,6 +26,8 @@ from repro.kernels import figmn_stream as jstream
 from repro.kernels import figmn_update as jupdate
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import figmn
+from repro_torch.core.types import FIGMNConfig, gate_threshold
 from repro_torch.kernels import (_build, figmn_sparse, figmn_stream,
                                  figmn_update, mahalanobis, ops, ref)
 
@@ -353,3 +355,197 @@ def test_resident_working_set_formula():
                                                    + 7 * 16 + 32)
     assert figmn_stream.smem_bytes(16, 32) <= 232448
     assert figmn_stream.smem_bytes(32, 64) > 232448
+
+
+H100_SMEM, H100_BLOCKS = 232448, 132
+
+
+def _blocks_of_component(plan, k, d, comp):
+    """The blocks whose rows the grid kernel sums for component ``comp``,
+    with its index among each block's components: the kernel's formula
+    (first block ⌊comp·D/R⌋, last ⌊((comp+1)·D − 1)/R⌋, slot
+    comp − ⌊b·R/D⌋)."""
+    r = plan.rows
+    return [(b, comp - (b * r) // d)
+            for b in range((comp * d) // r, ((comp + 1) * d - 1) // r + 1)]
+
+
+@pytest.mark.parametrize("k,d,blocks", [
+    (32, 256, None), (32, 64, None), (256, 32, None), (3, 1024, None),
+    (1, 1773, None), (12288, 16, None), (16, 32, 3), (4, 8, 5), (5, 7, 4)])
+def test_grid_plan_covers_every_row_once(k, d, blocks):
+    """The plan's blocks tile the K·D rows of the Λ stack exactly; each
+    block's shared memory is within the limit and its components within
+    ``nc``; the kernel's per-component block formula finds exactly the
+    blocks that hold the component's rows."""
+    plan = figmn_stream.grid_plan(k, d, H100_SMEM, H100_BLOCKS, blocks)
+    assert plan.blocks <= H100_BLOCKS and plan.smem_bytes <= H100_SMEM
+    assert plan.smem_bytes == figmn_stream.grid_smem_bytes(plan.rows,
+                                                           plan.nc, d)
+    if blocks is not None:
+        assert plan.blocks == blocks
+    spans = figmn_stream.plan_blocks(plan, k, d)
+    rows = np.concatenate([np.arange(r0, r0 + n) for r0, n in spans])
+    np.testing.assert_array_equal(rows, np.arange(k * d))
+    assert all(n >= 1 for _, n in spans)
+    owners = {}
+    for b, (r0, n) in enumerate(spans):
+        comps = range(r0 // d, (r0 + n - 1) // d + 1)
+        assert len(comps) <= plan.nc
+        for c in comps:
+            owners.setdefault(c, []).append((b, c - r0 // d))
+    for comp in range(k):
+        assert _blocks_of_component(plan, k, d, comp) == owners[comp]
+
+
+def test_grid_plan_spreads_and_straddles():
+    """Unforced, a pool goes over ⌈K·D/64⌉ blocks up to the card's count;
+    the forced three-block plan of the (K = 16, D = 32) cell cuts inside
+    components, so components straddle blocks."""
+    p = figmn_stream.grid_plan(32, 256, H100_SMEM, H100_BLOCKS)
+    assert (p.rows, p.blocks, p.nc) == (64, 128, 2)
+    p = figmn_stream.grid_plan(48, 256, H100_SMEM, H100_BLOCKS)
+    assert p.rows == -(-48 * 256 // 132) == 94
+    assert p.blocks == -(-48 * 256 // 94) == 131       # no empty block
+    p = figmn_stream.grid_plan(16, 32, H100_SMEM, H100_BLOCKS, blocks=3)
+    assert (p.rows, p.blocks) == (171, 3) and p.rows % 32 != 0
+    straddling = [b for b, (r0, n) in enumerate(
+        figmn_stream.plan_blocks(p, 16, 32)) if r0 % 32 or (r0 + n) % 32]
+    assert straddling == [0, 1, 2]
+    # one row of D = 1773 floats: fewer rows per block, more blocks
+    p = figmn_stream.grid_plan(1, 1773, H100_SMEM, H100_BLOCKS)
+    assert p.rows < 64 and p.blocks == -(-1773 // p.rows)
+
+
+def test_grid_plan_raises_beyond_capacity():
+    # 32 MiB of Λ: beyond 132 blocks of 227 KB
+    with pytest.raises(ValueError, match="co-resident"):
+        figmn_stream.grid_plan(128, 256, H100_SMEM, H100_BLOCKS)
+    with pytest.raises(ValueError, match="co-resident"):
+        figmn_stream.grid_plan(32, 64, H100_SMEM, 2)
+    with pytest.raises(ValueError, match="does not fit"):
+        figmn_stream.grid_plan(1, 60000, H100_SMEM, H100_BLOCKS)
+    with pytest.raises(ValueError, match="do not fit"):
+        figmn_stream.grid_plan(32, 256, H100_SMEM, H100_BLOCKS, blocks=4)
+    with pytest.raises(ValueError, match="empty"):
+        figmn_stream.grid_plan(0, 8, H100_SMEM, H100_BLOCKS)
+    # no cooperative launch: no block
+    with pytest.raises(ValueError, match="co-resident"):
+        figmn_stream.grid_plan(32, 64, H100_SMEM, 0)
+
+
+def test_resident_plan_picks_one_block_or_the_grid():
+    cpu = torch.device("cpu")
+    assert figmn_stream.resident_plan(16, 32, cpu, H100_SMEM,
+                                      H100_BLOCKS) is None
+    assert figmn_stream.resident_plan(32, 64, cpu, H100_SMEM, H100_BLOCKS) \
+        == figmn_stream.grid_plan(32, 64, H100_SMEM, H100_BLOCKS)
+
+
+def test_stream_wrapper_takes_the_plain_version_on_cpu_with_a_plan():
+    cfg, state, xs = _formed_mixture(d=8)
+    s = {f: np.array(getattr(state, f)) for f in ("mu", "lam", "logdet",
+                                                   "sp", "active")}
+    args = (_t(xs), _t(s["mu"]), _t(s["lam"]), _t(s["logdet"]),
+            _t(s["sp"]), torch.from_numpy(s["active"].astype(np.int32)),
+            float(jchi2(8, 1.0 - cfg.beta)), 8)
+    plan = figmn_stream.grid_plan(4, 8, H100_SMEM, H100_BLOCKS, blocks=3)
+    before = dict(_build.LAUNCHES)
+    got = figmn_stream.figmn_stream(*args, plan=plan)
+    want = ref.figmn_stream_ref(*args)
+    assert _build.LAUNCHES == before
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _warp_dot(a, b):
+    """Σ a·b over the last axis in csrc/figmn_stream_grid.cu's order: lane
+    l sums the products j ≡ l (mod 32) in order, then a butterfly of
+    __shfl_xor_sync over the 32 lanes (float32, no contraction)."""
+    p = a * b
+    pad = (-p.shape[-1]) % 32
+    if pad:
+        p = torch.cat([p, p.new_zeros(p.shape[:-1] + (pad,))], -1)
+    p = p.reshape(p.shape[:-1] + (-1, 32))
+    acc = p.new_zeros(p.shape[:-2] + (32,))
+    for c in range(p.shape[-2]):
+        acc = acc + p[..., c, :]
+    lanes = torch.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        acc = acc + acc[..., lanes ^ o]
+    return acc[..., 0]
+
+
+def _grid_order_loop(xs, mu, lam, logdet, sp, active, thresh, dim, plan):
+    """figmn_stream_ref with the grid kernel's summation orders: y and the
+    per-block d² partials by ``_warp_dot``, the partials summed in block
+    order, the posterior's normaliser over 16 warps of 32 lanes."""
+    k, d = mu.shape
+    act = active.bool()
+    spans = figmn_stream.plan_blocks(plan, k, d)
+    log_norm = torch.tensor(dim * 1.8378770664093453, dtype=torch.float32)
+    nacc = 0
+    for t in range(xs.shape[0]):
+        diff = xs[t][None] - mu
+        y = _warp_dot(lam, diff[:, None, :])
+        yf, df = y.reshape(-1), diff.reshape(-1)
+        d2 = torch.zeros(k)
+        for c in range(k):
+            s = torch.zeros(())
+            for r0, n in spans:
+                a, z = max(r0, c * d), min(r0 + n, (c + 1) * d)
+                if a < z:
+                    s = s + _warp_dot(df[a:z], yf[a:z])
+            d2[c] = s
+        accept = bool(torch.any(act & (d2 < thresh)))
+        lw = torch.where(act, -0.5 * ((log_norm + logdet) + d2)
+                         + torch.log(sp.clamp_min(1e-30)),
+                         torch.full_like(d2, -1e30))
+        p = torch.where(act, torch.exp(lw - lw.max()), torch.zeros_like(lw))
+        warps = torch.cat([p, p.new_zeros(512 - k)]).reshape(16, 32)
+        lanes = torch.arange(32)
+        for o in (16, 8, 4, 2, 1):
+            warps = warps + warps[:, lanes ^ o]
+        s = torch.zeros(())
+        for i in range(16):
+            s = s + warps[i, 0]
+        post = p / s.clamp_min(1e-30) if accept else torch.zeros_like(p)
+        sp_new = sp + post
+        w = post / sp_new.clamp_min(1e-30)
+        om = 1.0 - w
+        beta = w / (1.0 + w * d2)
+        logdet = logdet + (dim * torch.log(om) + torch.log1p(w * d2))
+        sp = sp_new
+        mu = mu + w[:, None] * diff
+        lam = (lam - (beta[:, None] * y)[:, None, :] * y[:, :, None]) \
+            / om[:, None, None]
+        nacc += accept
+    return mu, lam, logdet, sp, nacc
+
+
+def test_grid_summation_order_stays_inside_the_limit():
+    """The error model behind chip_smoke.py's grid-kernel limits, on the
+    CPU: the plain loop with the grid kernel's summation orders (G = 3,
+    rows straddling components) stays within 16·√(N·D)·u of each
+    quantity's scale of the plain version, with the same accepts."""
+    rng = np.random.default_rng(1)
+    k, d, n = 16, 32, 256
+    centers = rng.normal(0, 6.0, (4, d))
+    x = torch.from_numpy((centers[rng.integers(0, 4, n + 512)]
+                          + rng.normal(0, 1.0, (n + 512, d)))
+                         .astype(np.float32))
+    cfg = FIGMNConfig(kmax=k, dim=d, beta=0.1, delta=1.0, vmin=1e9,
+                      spmin=0.0, update_mode="exact",
+                      sigma_ini=figmn.sigma_from_data(x, 1.0))
+    st = figmn.fit(cfg, figmn.init_state(cfg, "cpu"), x[:512])
+    args = (x[512:].contiguous(), st.mu, st.lam, st.logdet, st.sp,
+            st.active.to(torch.int32), gate_threshold(cfg), d)
+    plan = figmn_stream.grid_plan(k, d, H100_SMEM, H100_BLOCKS, blocks=3)
+    want = ref.figmn_stream_ref(*args)
+    got = _grid_order_loop(*args, plan)
+    assert got[4] == int(want[4][0]) > 0
+    limit = 16 * np.sqrt(n * d) * 2.0 ** -24
+    m = st.active
+    for g, w in zip(got[:4], want[:4]):
+        scale = float(w[m].abs().max())
+        assert float((g[m] - w[m]).abs().max()) <= limit * scale

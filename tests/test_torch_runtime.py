@@ -257,26 +257,65 @@ def test_entry_points_raise_without_a_device(monkeypatch):
 
 
 def test_select_path_resident_budget():
-    """The resident kernel is chosen on CUDA only, in exact mode, within the
-    per-block shared-memory limit (passed here; queried on a card)."""
-    h100 = 232448
+    """The resident kernels are chosen on CUDA only, in exact mode, within
+    the reference's 12 MiB budget and what the card holds: one block for a
+    pool that fits one, a cooperative grid beyond it (the per-block shared
+    memory and the co-resident block count are passed here; queried on a
+    card)."""
+    h100 = dict(smem_limit=232448, max_blocks=132)
     x, _ = _joint(10, seed=11)
     _, cfg = _configs(x, kmax=16, update_mode="exact")
     small = dataclasses.replace(cfg, kmax=16, dim=32)
-    big = dataclasses.replace(cfg, kmax=32, dim=64)
-    assert select_path(small, device="cuda", smem_limit=h100) == "vmem"
+    big = dataclasses.replace(cfg, kmax=32, dim=64)      # 512 KiB: a grid
+    over = dataclasses.replace(cfg, kmax=49, dim=256)    # 12.25 MiB
+    assert select_path(small, device="cuda", **h100) == "vmem"
     assert select_path(small, device="cpu") == "scan"
     assert select_path(dataclasses.replace(small, update_mode="paper"),
-                       device="cuda", smem_limit=h100) == "scan"
-    assert select_path(big, device="cuda", smem_limit=h100) == "scan"
-    with pytest.raises(ValueError, match="shared memory"):
-        select_path(big, requested="vmem", device="cuda", smem_limit=h100)
+                       device="cuda", **h100) == "scan"
+    assert select_path(big, device="cuda", **h100) == "vmem"
+    assert select_path(big, device="cuda", vmem_budget=2 ** 19 - 1,
+                       **h100) == "scan"
+    assert select_path(over, device="cuda", **h100) == "scan"
+    assert select_path(over, requested="vmem", device="cuda",
+                       **h100) == "vmem"
+    # a card that holds two blocks cannot hold the big pool
+    assert select_path(big, device="cuda", smem_limit=232448,
+                       max_blocks=2) == "scan"
+    with pytest.raises(ValueError, match="cannot hold"):
+        select_path(big, requested="vmem", device="cuda",
+                    smem_limit=232448, max_blocks=2)
     with pytest.raises(ValueError, match="exact"):
         select_path(dataclasses.replace(small, update_mode="paper"),
                     requested="vmem", device="cpu")
     assert select_path(big, requested="scan", device="cuda") == "scan"
     with pytest.raises(ValueError, match="unknown path"):
         select_path(small, requested="fast", device="cpu")
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256, 512, 1024, 1773])
+def test_select_path_matches_reference_tpu_routing(d):
+    """Around the reference's 12 MiB boundary (K·D²·4 exactly 12 MiB, one
+    component more and one less, and a few small pools), the port on
+    "cuda" with an H100's capacities picks "vmem" iff the reference's
+    heuristic does on a TPU."""
+    x, _ = _joint(10, seed=14)
+    _, cfg = _configs(x, kmax=4, update_mode="exact")
+    edge = jingest.DEFAULT_VMEM_BUDGET // (4 * d * d)
+    ks = sorted({1, 2, 8, max(1, edge - 1), edge, edge + 1})
+    assert ingest.DEFAULT_VMEM_BUDGET == jingest.DEFAULT_VMEM_BUDGET
+    for k in ks:
+        for mode in ("exact", "paper"):
+            c = dataclasses.replace(cfg, kmax=k, dim=d, update_mode=mode,
+                                    sigma_ini=None)
+            jc = JConfig(kmax=k, dim=d, update_mode=mode)
+            want = jingest.select_path(jc, device="tpu")
+            got = select_path(c, device="cuda", smem_limit=232448,
+                              max_blocks=132)
+            assert got == want, (k, d, mode)
+    assert select_path(dataclasses.replace(cfg, kmax=edge, dim=d,
+                                           sigma_ini=None),
+                       device="cuda", smem_limit=232448,
+                       max_blocks=132) == "vmem"
 
 
 def test_loader_yields_stream_in_chunks():
