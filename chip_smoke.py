@@ -50,6 +50,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      fail a kernel that drops one 64-key tile; times against its bound,
      the plain version and ``scaled_dot_product_attention`` with the same
      mask.
+  6b. flash-attention backward, ``flash_bwd_dq`` and ``flash_bwd_dkv``
+     against their plain versions: phase 6's small cases with three keys
+     hidden (rows that see no key), float32 and bfloat16, then the scoring
+     shape in bfloat16 with per-row limits shown to fail three wrong
+     backwards (a 64-key tile dropped from dq, a 64-row query tile dropped
+     from dk and dv, dk and dv from the first query head of each group
+     only); two launches bit-equal; times against their bounds, the plain
+     versions and the backward of ``scaled_dot_product_attention``.
   7. scoring at full width: h2o-danube-1.8b (24 layers, d_model 2560, bf16,
      seeded init on the card), ``loss_fn`` over one SyntheticTokens batch
      of 8192 tokens under ``no_grad`` with ``ATTN_IMPL = "flash"``: 24
@@ -63,7 +71,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      reference); prefill and decode times; the engine's first-token
      logits of the 3000-token prompt against ``forward_train``'s (flash),
      with the same dropped-tile control.
-  9. one JSON line with every kernel (and each phase's wall seconds), the
+  9. the loss gradient at full width: ``train.trainer._grads`` (the port
+     of ``jax.value_and_grad(loss_fn)``) of h2o-danube-1.8b over the
+     scoring batch with ``ATTN_IMPL = "flash"`` and per-layer remat: loss,
+     global grad norm, the median ms of 3 gradients after a warm-up, peak
+     memory, launches (48 flash_fwd, 24 flash_bwd_dq, 24 flash_bwd_dkv a
+     gradient), the backward kernels' share of a profiled gradient; held
+     leaf by leaf against the same gradient through the plain attention,
+     with a limit that each wrong backward of 6b must fail on 2 layers.
+  10. one JSON line with every kernel (and each phase's wall seconds), the
      card line, and the result line.
 
 Imports neither JAX nor the reference package.
@@ -1252,6 +1268,262 @@ def phase_flash(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 6b: flash-attention backward, kernels against plain
+# ---------------------------------------------------------------------------
+
+def flash_bwd_limits(want, q, k, g: int):
+    """Per-row limits on ‖got − plain‖₂ for dq (rows: queries), dk and dv
+    (rows: keys), as (limit per row, e).
+
+    Both sides compute in float32 from the same operands (lse and δ
+    included) and round once to the working type.  float32: a logit is a
+    d-term dot, off by at most about d·u of its terms and √d·u·L in
+    practice (L = scale·max‖q‖·max‖k‖ bounds |logit|), which moves p by
+    as much relative; dp likewise by d·u; a row sums up to g·S terms
+    (u·√(g·S) at random signs): e = 8·u·(d + √d·L + √(g·S)) of the row's
+    norm (u = 2⁻²⁴).  bfloat16 adds each side's one rounding of the row,
+    2⁻⁸ of it, with margin: 4·2⁻⁸.  A floor at e of the largest row's
+    norm covers rows whose terms cancel: Σ_j ds_ij = 0 exactly, so a row
+    with one visible key has dq = 0 up to the rounding of dp − δ, which
+    the two sides sum in other orders."""
+    d, s = q.shape[-1], k.shape[1]
+    lmax = float(q.float().norm(dim=-1).max() * k.float().norm(dim=-1).max()
+                 ) / d ** 0.5
+    e = 8 * EPS32 * (d + d ** 0.5 * lmax + (g * s) ** 0.5)
+    r = 4 * EPS_BF16 if want.dtype == torch.bfloat16 else 0.0
+    norm = want.float().norm(dim=-1)
+    return (e + r) * norm + e * norm.max(), e
+
+
+def flash_bwd_excess(got, want, q, k, g: int) -> float:
+    """The largest row error over its limit."""
+    limit, _ = flash_bwd_limits(want, q, k, g)
+    return float(((got.float() - want.float()).norm(dim=-1) / limit).max())
+
+
+# the backward's controls, the plain version made wrong on purpose:
+# "dq_tile" drops the keys at positions 0-63 from dq, "dkv_tile" the
+# query rows at positions 0-63 from dk and dv, "dkv_head" sums only the
+# first query head of each group into dk and dv
+BWD_WRONG_KINDS = ("dq_tile", "dkv_tile", "dkv_head")
+BWD_TOUCHED = {"dq_tile": ("dq",), "dkv_tile": ("dk", "dv"),
+               "dkv_head": ("dk", "dv")}
+
+
+def wrong_bwd_parts(kind: str, q, k, v, qp, kp, dout, lse, delta, out,
+                    window, causal=True) -> dict:
+    """The outputs the wrong backward of ``kind`` changes, by name, from
+    the plain versions (no kernel launch)."""
+    from repro_torch.kernels import ref
+
+    if kind == "dq_tile":
+        return {"dq": ref.flash_bwd_dq_ref(q, k, v, qp, tile_hidden(kp, 0),
+                                           dout, lse, delta, window,
+                                           causal)}
+    d0 = dout.clone()
+    if kind == "dkv_tile":
+        d0[(qp >= 0) & (qp < 64)] = 0
+    else:
+        g = q.shape[2] // k.shape[2]
+        d0[:, :, torch.arange(q.shape[2], device=q.device) % g != 0] = 0
+    dk, dv = ref.flash_bwd_dkv_ref(q, k, v, qp, kp, d0, lse,
+                                   ref.flash_delta(out, d0), window, causal)
+    return {"dk": dk, "dv": dv}
+
+
+def wrong_bwd(kind: str):
+    """A wrong ``flash_bwd`` of the kind named (it launches no kernel)."""
+    from repro_torch.kernels import ref
+
+    def fn(q, k, v, q_pos, k_pos, out, lse, dout, window, causal=True):
+        delta = ref.flash_delta(out, dout)
+        dq = ref.flash_bwd_dq_ref(q, k, v, q_pos, k_pos, dout, lse, delta,
+                                  window, causal)
+        dk, dv = ref.flash_bwd_dkv_ref(q, k, v, q_pos, k_pos, dout, lse,
+                                       delta, window, causal)
+        got = dict(dq=dq, dk=dk, dv=dv)
+        got.update(wrong_bwd_parts(kind, q, k, v, q_pos, k_pos, dout, lse,
+                                   delta, out, window, causal))
+        return got["dq"], got["dk"], got["dv"]
+    return fn
+
+
+@contextlib.contextmanager
+def flash_bwd_replaced(fn):
+    """Inside, the FlashAttention Function's backward calls ``fn`` in place
+    of ``flash_bwd`` (same arguments, same (dq, dk, dv) result)."""
+    from repro_torch.kernels import flash_attention
+
+    keep = flash_attention.flash_bwd
+    flash_attention.flash_bwd = fn
+    try:
+        yield
+    finally:
+        flash_attention.flash_bwd = keep
+
+
+def flash_bwd_inputs(dev, g, case, dtype, hide: int = 0):
+    """Phase 6's inputs plus dout, with the first ``hide`` keys hidden (a
+    row at T = S then sees no key), and the kernel forward's out and lse."""
+    from repro_torch.kernels import flash_attention
+
+    b, t, s, h, kv, d, causal, win = case
+    q, k, v, qp, kp = flash_inputs(dev, g, b, t, s, h, kv, d, dtype)
+    kp[:, :hide] = -1
+    dout = torch.randn((b, t, h, d), generator=g, device=dev).to(dtype)
+    out, lse = flash_attention.flash_fwd(q, k, v, qp, kp, win, causal)
+    return q, k, v, qp, kp, dout, out, lse
+
+
+def phase_flash_bwd(dev):
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for case in FLASH_SMALL:
+            b, t, s, h, kv, d, causal, win = case
+            q, k, v, qp, kp, dout, out, lse = flash_bwd_inputs(
+                dev, g, case, dtype, hide=3)
+            delta = ref.flash_delta(out, dout)
+            args = (q, k, v, qp, kp, dout, lse, delta, win, causal)
+            got = (fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            want = (ref.flash_bwd_dq_ref(*args),) + ref.flash_bwd_dkv_ref(
+                *args)
+            w = tuple(flash_bwd_excess(a, b_, q, k, h // kv)
+                      for a, b_ in zip(got, want))
+            worst[(str(dtype)[6:],) + case] = w
+            if not max(w) <= 1.0:
+                raise AssertionError(f"flash backward {dtype} {case}: error "
+                                     f"over its limit (dq, dk, dv) {w}")
+    log("flash_bwd_dq / flash_bwd_dkv small cases (B, T, S, H, KV, d, "
+        "causal, window; keys 0-2 hidden) in float32 and bfloat16: largest "
+        "row error over its limit (dq, dk, dv)")
+    for key, w in worst.items():
+        log(f"  {key}: {w[0]:.3e}, {w[1]:.3e}, {w[2]:.3e}")
+
+    b, t, h, kv, d, win = FLASH_MAIN
+    case = (b, t, t, h, kv, d, True, win)
+    log(f"flash backward at the scoring shape B={b} T=S={t} H={h} KV={kv} "
+        f"d={d} window={win} causal bfloat16")
+    q, k, v, qp, kp, dout, out, lse = flash_bwd_inputs(dev, g, case,
+                                                       torch.bfloat16)
+    delta = ref.flash_delta(out, dout)
+    args = (q, k, v, qp, kp, dout, lse, delta, win)
+    got = {"dq": fa.flash_bwd_dq(*args)}
+    got["dk"], got["dv"] = fa.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    same = torch.equal(got["dq"], fa.flash_bwd_dq(*args)) and all(
+        torch.equal(a, b_) for a, b_ in zip((got["dk"], got["dv"]),
+                                            fa.flash_bwd_dkv(*args)))
+    log(f"  two launches of each kernel bit-equal: {same}")
+    if not same:
+        raise AssertionError("flash backward: two launches differ")
+    want = {"dq": ref.flash_bwd_dq_ref(*args)}
+    want["dk"], want["dv"] = ref.flash_bwd_dkv_ref(*args)
+    over, errs = {}, {}
+    for name in ("dq", "dk", "dv"):
+        over[name] = flash_bwd_excess(got[name], want[name], q, k, h // kv)
+        errs[name] = max_err(got[name], want[name])
+    e = flash_bwd_limits(want["dq"], q, k, h // kv)[1]
+    log(f"  limit per row (4·2⁻⁸ + e)·‖row‖ + e·max‖row‖, e = {e:.3e}; "
+        + "; ".join(f"{n}: max_abs_err {errs[n]:.3e}, largest row error "
+                    f"over its limit {over[n]:.3e}" for n in over))
+    if not max(over.values()) <= 1.0:
+        raise AssertionError(f"flash backward over its limit {over}")
+    controls = {}
+    for kind in BWD_WRONG_KINDS:
+        parts = wrong_bwd_parts(kind, q, k, v, qp, kp, dout, lse, delta, out,
+                                win)
+        controls[kind] = {n: flash_bwd_excess(x, want[n], q, k, h // kv)
+                          for n, x in parts.items()}
+        log(f"  control {kind}: largest row error over the limit "
+            + ", ".join(f"{n} {x:.3e}" for n, x in controls[kind].items()))
+        if not min(controls[kind].values()) > 1.0:
+            raise AssertionError(f"flash backward: the limits would pass "
+                                 f"the wrong backward {kind}")
+        del parts
+    del want, got
+    torch.cuda.empty_cache()
+
+    pairs = visible_pairs(qp, kp, win, True, h)
+    # each input read once, each output written once: q, dO (H heads),
+    # k, v (KV heads) in bf16, lse and δ in float32; dq at H heads, dk
+    # and dv at KV heads.  Operations: 6·d a visible pair for dq (q·k,
+    # dO·v, ds·k), 8·d for dk and dv (q·k, dO·v, p·dO, ds·q)
+    io = 2 * 2 * b * t * h * d + 2 * 2 * b * t * kv * d + 2 * 4 * b * h * t
+    bounds = {"flash_bwd_dq": bound_ms(io + 2 * b * t * h * d,
+                                       6 * d * pairs, BF16_FLOP_PER_S),
+              "flash_bwd_dkv": bound_ms(io + 2 * 2 * b * t * kv * d,
+                                        8 * d * pairs, BF16_FLOP_PER_S)}
+    ms = {"flash_bwd_dq": time_ms(lambda: fa.flash_bwd_dq(*args), 10,
+                                  cold=True),
+          "flash_bwd_dkv": time_ms(lambda: fa.flash_bwd_dkv(*args), 10,
+                                   cold=True)}
+    plain = {"flash_bwd_dq": time_ms(lambda: ref.flash_bwd_dq_ref(*args), 3,
+                                     warmup=1),
+             "flash_bwd_dkv": time_ms(lambda: ref.flash_bwd_dkv_ref(*args), 3,
+                                      warmup=1)}
+    lib = sdpa_backward_ms(q, k, v, qp, kp, dout, win)
+    rows = {}
+    for name, outs in (("flash_bwd_dq", ("dq",)),
+                       ("flash_bwd_dkv", ("dk", "dv"))):
+        bms, by = bounds[name]
+        log(f"  {name} {ms[name]:.3f} ms cold L2 (bound {bms:.4f} ms by {by};"
+            f" plain {plain[name]:.3f} ms; the backward of "
+            f"scaled_dot_product_attention, dq, dk and dv together, "
+            + (f"{lib:.3f} ms)" if lib is not None else "not measured)"))
+        rows[name] = dict(
+            name=name, route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention.py:"
+                     + ("273" if name == "flash_bwd_dq" else "295"),
+            max_abs_err=max(errs[o] for o in outs), ms=ms[name],
+            plain_ms=plain[name], bound_ms=bms, bound_by=by,
+            library_ms=lib,
+            library_call="scaled_dot_product_attention with a bool mask "
+                         "and enable_gqa: (forward + backward) − forward, "
+                         "dq, dk and dv in one call",
+            over_limit={o: over[o] for o in outs},
+            controls_over_limit={kd: c for kd, c in controls.items()
+                                 if set(c) & set(outs)},
+            visible_pairs=pairs)
+    log(f"  visible pairs {pairs:,}; bound by operations at 989 TFLOP/s "
+        f"bf16: dq {6 * d * pairs / BF16_FLOP_PER_S * 1e3:.4f} ms, dk+dv "
+        f"{8 * d * pairs / BF16_FLOP_PER_S * 1e3:.4f} ms")
+    del q, k, v, dout, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows, {f"{k_}": v_ for k_, v_ in worst.items()}
+
+
+def sdpa_backward_ms(q, k, v, qp, kp, dout, window):
+    """``scaled_dot_product_attention``'s backward with the same bool mask
+    and ``enable_gqa``, timed as (forward + backward) − forward, cold L2;
+    None (printed) where no backend of this PyTorch takes the call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dos = dout.transpose(1, 2).contiguous()
+    dpos = qp[0][:, None] - kp[0][None, :]
+    mask = (kp[0] >= 0)[None, :] & (dpos >= 0) & (dpos < window)
+
+    def fwd():
+        return sdpa(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qs, ks, vs), dos)
+    try:
+        both = time_ms(fwd_bwd, 10, cold=True)
+        fwd_only = time_ms(fwd, 10, cold=True)
+    except RuntimeError as exc:
+        log(f"  scaled_dot_product_attention's backward: {exc}")
+        return None
+    return both - fwd_only
+
+
+# ---------------------------------------------------------------------------
 # phase 7: scoring at full width
 # ---------------------------------------------------------------------------
 
@@ -1594,6 +1866,203 @@ def phase_generation(dev, cfg, params):
         first_token_rel_err=rel, first_token_controls_rel_err=controls)
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the loss gradient at full width
+# ---------------------------------------------------------------------------
+
+# Limits on every leaf's ‖g_flash − g_plain‖ / ‖g_plain‖.  bfloat16: the
+# flash path rounds p to bf16 in the forward only and dq, dk, dv once; the
+# plain path under autograd also rounds each 512-key chunk's context, p
+# and their gradients (dp, dctx) to bf16: a few 2⁻⁸ of each attention row
+# and its gradient per layer, in the forward and again in the backward,
+# as LOGITS_REL_TOL counts the forward's.  A leaf's gradient sums 8192
+# positions of such rows, so its relative error stays of that order:
+# 8·2⁻⁸.  float32 (the 2-layer cut with its weights in float32): the two
+# paths compute the same float32 terms and differ only in the order of
+# their sums (chunked online softmax against one pass over the keys,
+# other product tilings), about √n·u of the terms for n ≤ T = 8192
+# terms a sum; with a 32× margin, 32·√8192·u.
+GRAD_REL_TOL = 8 * EPS_BF16
+GRAD_REL_TOL_F32 = 32 * 8192 ** 0.5 * EPS32
+
+
+def _flat_leaves(tree, prefix=""):
+    if torch.is_tensor(tree):
+        return [(prefix[:-1], tree)]
+    return [x for k_, v in tree.items()
+            for x in _flat_leaves(v, f"{prefix}{k_}.")]
+
+
+def rel_leaves(got, want, per_layer=False) -> dict:
+    """‖got − want‖ / ‖want‖ by leaf (and by layer of the stacked leaves
+    when ``per_layer``), in float64."""
+    out = {}
+    for (name, a), (_, b) in zip(_flat_leaves(got), _flat_leaves(want)):
+        pairs = [(name, a, b)]
+        if per_layer and name.startswith("blocks."):
+            pairs = [(f"{name}[{i}]", a[i], b[i]) for i in range(a.shape[0])]
+        for n, x, y in pairs:
+            out[n] = float((x.double() - y.double()).norm()
+                           / y.double().norm())
+    return out
+
+
+def grad_norm(grads) -> float:
+    return float(torch.sqrt(sum((t.float() ** 2).sum()
+                                for _, t in _flat_leaves(grads))))
+
+
+def phase_gradient(dev, cfg, params, scoring_loss: float):
+    from repro_torch.core.types import map_tree
+    from repro_torch.data.tokens import SyntheticTokens, TokenPipelineConfig
+    from repro_torch.kernels import _build
+    from repro_torch.models import layers, transformer
+    from repro_torch.train import trainer
+
+    seq = 8192
+    data = SyntheticTokens(TokenPipelineConfig(cfg.vocab_size, seq, 1,
+                                               seed=0)).batch(0)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    grads_of = lambda c, p: trainer._grads(c, p, batch)   # noqa: E731
+    layers.ATTN_IMPL = "flash"
+    try:
+        grads_of(cfg, params)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        (loss, g_flash), first_s = timed(lambda: grads_of(cfg, params))
+        launches = dict(_build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        times = [first_s] + [timed(lambda: grads_of(cfg, params))[1]
+                             for _ in range(2)]
+        by_kernel, wall_us = device_time_by_kernel(
+            lambda: grads_of(cfg, params))
+        with torch.no_grad():
+            row_max = float(transformer.forward_train(
+                params, cfg, batch).norm(dim=-1).max())
+    finally:
+        layers.ATTN_IMPL = "xla"
+    loss = float(loss)
+    norm = grad_norm(g_flash)
+    ms = statistics.median(times) * 1e3
+    busy = sum(by_kernel.values())
+    share = {n: sum(v for k_, v in by_kernel.items() if n in k_) / busy
+             if busy else None
+             for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    log(f"gradient: trainer._grads over B=1 T={seq}, ATTN_IMPL flash, remat"
+        f" per layer: loss {loss:.6f} (the scoring phase's no-grad loss "
+        f"{scoring_loss:.6f}, |Δ| {abs(loss - scoring_loss):.3e}); global "
+        f"grad norm {norm:.6e}; {ms:.1f} ms a gradient (median of "
+        f"{[round(x * 1e3, 1) for x in times]}); peak memory "
+        f"{peak / 2 ** 30:.2f} GiB; launches {launches}")
+    log(f"  profiled gradient: wall {wall_us / 1e3:.1f} ms, device busy "
+        f"{busy / 1e3:.1f} ms; share of the busy time: "
+        + ", ".join(f"{n} {v:.3f}" for n, v in share.items()) if busy else
+        "  profiled gradient: device time not measured")
+    for k_, v in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  {v / 1e3:10.2f} ms  {k_[:90]}")
+    want = {"flash_fwd": 2 * cfg.n_layers, "flash_bwd_dq": cfg.n_layers,
+            "flash_bwd_dkv": cfg.n_layers}
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{launches[name]} {name} launches in a "
+                                 f"gradient, want {n}")
+    if not (np.isfinite(loss) and np.isfinite(norm)):
+        raise AssertionError(f"gradient: loss {loss}, norm {norm}")
+
+    # the same gradient through the plain chunked attention under autograd
+    # (same remat), held leaf by leaf
+    torch.cuda.reset_peak_memory_stats()
+    (loss_x, g_plain), plain_s = timed(lambda: grads_of(cfg, params))
+    plain_peak = torch.cuda.max_memory_allocated()
+    loss_x = float(loss_x)
+    # |Δ loss| ≤ max over positions of 2·max_v |Δ logit| ≤ 2·‖Δ row‖, and
+    # the scoring phase's limit holds a row to LOGITS_REL_TOL of its norm
+    loss_tol = 2 * LOGITS_REL_TOL * row_max
+    rel = rel_leaves(g_flash, g_plain)
+    worst = max(rel, key=rel.get)
+    log(f"  plain attention (\"xla\"): loss {loss_x:.6f}, |Δ| "
+        f"{abs(loss - loss_x):.3e} (limit 2·{LOGITS_REL_TOL:.4f}·max‖logits "
+        f"row‖ = {loss_tol:.3e}); {plain_s * 1e3:.1f} ms, peak "
+        f"{plain_peak / 2 ** 30:.2f} GiB; largest leaf error "
+        f"‖g_flash − g_plain‖/‖g_plain‖ {rel[worst]:.3e} ({worst}; limit "
+        f"{GRAD_REL_TOL:.4f})")
+    if not abs(loss - loss_x) <= loss_tol:
+        raise AssertionError("gradient: the two attention paths' losses "
+                             "disagree")
+    if not rel[worst] <= GRAD_REL_TOL:
+        raise AssertionError(f"gradient: leaf {worst} over its limit")
+    del g_flash, g_plain
+    torch.cuda.empty_cache()
+
+    # 2 layers of the same width, in bf16 and with the weights in float32:
+    # through the flash kernels, the plain attention and each wrong
+    # backward (in both layers).  Gated: flash within the limit of its
+    # type; each wrong backward outside the float32 limit on the attention
+    # leaves it touches (wq for a dq fault; wk, wv for a dk/dv fault), in
+    # each layer.  In bf16 the two paths' own disagreement is of the size
+    # a one-tile dv fault moves wv, so there the controls are printed only.
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p2 = dict(params, blocks=map_tree(lambda t: t[:2], params["blocks"]))
+    cut = {}
+    for dtype, tol in ((torch.bfloat16, GRAD_REL_TOL),
+                       (torch.float32, GRAD_REL_TOL_F32)):
+        rel2, controls = two_layer_grads(
+            cfg2, map_tree(lambda t: t.to(dtype), p2), grads_of)
+        worst2 = max(rel2, key=rel2.get)
+        name = str(dtype)[6:]
+        log(f"  2 layers, {name}: largest leaf error {rel2[worst2]:.3e} "
+            f"({worst2}; limit {tol:.3e})")
+        for kind, c in controls.items():
+            log(f"  {name} control {kind}: " + ", ".join(
+                f"{n} {x:.3e} ({x / tol:.1f}× the limit)"
+                for n, x in c.items()))
+        if not rel2[worst2] <= tol:
+            raise AssertionError(f"gradient, 2 layers, {name}: {worst2} "
+                                 "over the limit")
+        if dtype == torch.float32 and not min(
+                min(c.values()) for c in controls.values()) > tol:
+            raise AssertionError("gradient: the float32 leaf limit would "
+                                 "pass a wrong backward")
+        cut[name] = dict(leaf_rel_err=rel2, controls_rel_err=controls,
+                         limit=tol)
+    torch.cuda.empty_cache()
+    return launches, dict(
+        loss=loss, scoring_loss=scoring_loss, grad_norm=norm, ms=ms,
+        timed_ms=[x * 1e3 for x in times], peak_gib=peak / 2 ** 30,
+        profile_wall_ms=wall_us / 1e3, device_busy_ms=busy / 1e3,
+        kernel_share=share, plain_loss=loss_x, loss_tol=loss_tol,
+        plain_ms=plain_s * 1e3, plain_peak_gib=plain_peak / 2 ** 30,
+        leaf_rel_err=rel, leaf_limit=GRAD_REL_TOL, two_layers=cut)
+
+
+def two_layer_grads(cfg2, p2, grads_of):
+    """The 2-layer cut's gradient through the plain attention, the flash
+    kernels and each wrong backward: (leaf errors of flash against plain
+    by layer, {kind: errors of the leaves it touches})."""
+    from repro_torch.models import layers
+
+    _, g2x = grads_of(cfg2, p2)
+    layers.ATTN_IMPL = "flash"
+    try:
+        _, g2f = grads_of(cfg2, p2)
+        rel2 = rel_leaves(g2f, g2x, per_layer=True)
+        del g2f
+        controls = {}
+        for kind in BWD_WRONG_KINDS:
+            with flash_bwd_replaced(wrong_bwd(kind)):
+                _, g = grads_of(cfg2, p2)
+            r = rel_leaves(g, g2x, per_layer=True)
+            weights = {"dq": "wq", "dk": "wk", "dv": "wv"}
+            controls[kind] = {n: r[n] for n in (
+                f"blocks.attn.{weights[o]}[{i}]"
+                for o in BWD_TOUCHED[kind] for i in range(cfg2.n_layers))}
+            del g
+    finally:
+        layers.ATTN_IMPL = "xla"
+    return rel2, controls
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1632,13 +2101,19 @@ def main() -> int:
     sparse["warm_l2_ms"] = warm
     flash_row, flash_small = phase("flash", phase_flash, dev)
     rows["flash_fwd"] = flash_row
+    bwd_rows, flash_bwd_small = phase("flash_bwd", phase_flash_bwd, dev)
+    rows.update(bwd_rows)
     cfg, params = phase("danube_params", danube_params, dev)
     score_launches, scoring = phase("scoring", phase_scoring, dev, cfg,
                                     params)
     gen_launches, generation = phase("generation", phase_generation, dev,
                                      cfg, params)
+    grad_launches, gradient = phase("gradient", phase_gradient, dev, cfg,
+                                    params, scoring["loss"])
     del params
     rows["flash_fwd"]["launches"] = score_launches["flash_fwd"]
+    for name in ("flash_bwd_dq", "flash_bwd_dkv"):
+        rows[name]["launches"] = grad_launches[name]
     rows["matvec2"]["launches"] = main_launches["matvec2"]
     rows["rank2_apply"]["launches"] = main_launches["rank2_apply"]
     rows["figmn_stream"]["launches"] = res_launches["figmn_stream"]
@@ -1661,8 +2136,14 @@ def main() -> int:
                       "flash": {k_: flash_row[k_] for k_ in (
                           "warm_l2_ms", "visible_pairs", "library_call",
                           "library_expanded_kv_ms", "shape")},
+                      "flash_bwd_small": flash_bwd_small,
+                      "flash_bwd": {n: {k_: bwd_rows[n][k_] for k_ in (
+                          "over_limit", "controls_over_limit",
+                          "library_call", "visible_pairs")}
+                          for n in bwd_rows},
                       "scoring": scoring, "generation": generation,
                       "generation_launches": gen_launches,
+                      "gradient": gradient, "gradient_launches": grad_launches,
                       "build_s": build_s, "phase_s": phase_s,
                       "script_s": time.perf_counter() - T_START}))
     print(card_line())

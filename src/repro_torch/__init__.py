@@ -17,6 +17,7 @@ library only.
   models    the LM stack, dense family (config, layers, transformer)
   configs   the LM architecture registry (h2o-danube-1.8b so far)
   serve     the batched LM serving engine
+  train     the LM's loss gradient (trainer._grads, _accumulated_grads)
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; with no
 device and no card they raise.  Float32 products run in full float32: TF32

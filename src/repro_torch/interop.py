@@ -5,7 +5,8 @@ A state travels as a mapping of ``FIGMNState`` field names to numpy arrays
 reference package and the port exchange states without importing each
 other.  A config travels as a dict of ``FIGMNConfig`` fields with
 ``sigma_ini`` as a numpy array.  An LM's parameters travel as the
-reference's nested dict of numpy arrays (``lm_params_from_numpy``).
+reference's nested dict of numpy arrays (``lm_params_from_numpy``), and
+so does its gradient (``lm_params_to_numpy``).
 """
 from __future__ import annotations
 
@@ -86,5 +87,6 @@ def lm_params_from_numpy(tree: Mapping[str, Any], device=None,
 
 
 def lm_params_to_numpy(params: Mapping[str, Any]) -> Dict[str, Any]:
-    """The parameter dict as float32 numpy arrays (exact for bfloat16)."""
+    """The parameter dict, or a gradient of the same tree, as float32
+    numpy arrays (exact for bfloat16)."""
     return map_tree(lambda t: t.detach().float().cpu().numpy(), params)

@@ -6,7 +6,8 @@ plain PyTorch version.
                    one block, or a cooperative grid of blocks)
   figmn_sparse.py  gathered_matvec + scatter_apply (the top-C shortlist)
   mahalanobis.py   batched squared Mahalanobis distance
-  flash_attention.py  the LM's flash-attention forward
+  flash_attention.py  the LM's flash attention: forward, the two backward
+                   kernels and the autograd Function around them
   ops.py           the update wrappers behind backend="pallas"
   ref.py           the plain versions every kernel is held against
   _build.py        nvcc build of csrc/*.cu, ctypes binding, launch counts

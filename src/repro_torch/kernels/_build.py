@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-std=c++17", "-O3", ARCH, "-fmad=false", "-Xcompiler", "-fPIC",
 
 LAUNCHES = {"matvec2": 0, "rank2_apply": 0, "figmn_stream": 0,
             "figmn_stream_grid": 0, "gathered_matvec": 0, "scatter_apply": 0,
-            "mahalanobis": 0, "flash_fwd": 0}
+            "mahalanobis": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
@@ -61,6 +62,12 @@ _SIGNATURES = {
     "figmn_flash_fwd_smem_bytes": ([_I], _L),
     "figmn_flash_fwd": ([_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _I, _I, _F, _I, _P], _I),
+    "figmn_flash_bwd_dq_smem_bytes": ([_I], _L),
+    "figmn_flash_bwd_dkv_smem_bytes": ([_I], _L),
+    "figmn_flash_bwd_dq": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _I, _I, _F, _I, _P], _I),
+    "figmn_flash_bwd_dkv": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _F, _I, _P], _I),
 }
 
 _lib: Optional[ctypes.CDLL] = None

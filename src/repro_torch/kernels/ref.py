@@ -184,12 +184,7 @@ def flash_fwd_ref(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     kvh = k.shape[2]
     g = h // kvh
     scale = flash_scale(d)
-    dpos = q_pos[:, :, None] - k_pos[:, None, :]                  # (B, T, S)
-    mask = (k_pos >= 0)[:, None, :].expand(b, t, k_pos.shape[1])
-    if causal:
-        mask = mask & (dpos >= 0)
-    if window > 0:
-        mask = mask & (dpos < window)
+    mask = flash_mask(q_pos, k_pos, window, causal)               # (B, T, S)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     for hh in range(h):
@@ -206,3 +201,104 @@ def flash_fwd_ref(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
         out[:, :, hh] = (acc / lc[..., None]).to(q.dtype)
         lse[:, hh] = m + torch.log(lc)
     return out, lse
+
+
+def flash_mask(q_pos: Tensor, k_pos: Tensor, window: int,
+               causal: bool) -> Tensor:
+    """(B, T, S) bool: key s is visible to query t iff k_pos ≥ 0, (causal)
+    q_pos − k_pos ≥ 0 and (window ≤ 0 or q_pos − k_pos < window)."""
+    dpos = q_pos[:, :, None] - k_pos[:, None, :]
+    mask = (k_pos >= 0)[:, None, :].expand(dpos.shape)
+    if causal:
+        mask = mask & (dpos >= 0)
+    if window > 0:
+        mask = mask & (dpos < window)
+    return mask
+
+
+def flash_delta(out: Tensor, dout: Tensor) -> Tensor:
+    """δ = rowsum(dO ∘ O) in float32, (B, H, T) like lse: formed outside
+    the backward kernels, as the reference forms it."""
+    return (dout.float() * out.float()).sum(dim=-1).transpose(1, 2) \
+        .contiguous()
+
+
+def _flash_p_ds(qh, kh, vh, doh, lse_h, delta_h, mask, scale):
+    """One query head's p = exp(scale·qkᵀ − lse) under the mask (0 where
+    hidden) and ds = p ∘ (dO·vᵀ − δ), both (B, T, S) float32."""
+    logits = torch.einsum("btd,bsd->bts", qh.float(), kh.float()) * scale
+    p = torch.where(mask, torch.exp(logits - lse_h[..., None]), 0.0)
+    dp = torch.einsum("btd,bsd->bts", doh.float(), vh.float())
+    return p, p * (dp - delta_h[..., None])
+
+
+def flash_bwd_dq_ref(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                     k_pos: Tensor, dout: Tensor, lse: Tensor, delta: Tensor,
+                     window: int, causal: bool = True) -> Tensor:
+    """dq = scale·Σ_j ds_ij k_j with the arithmetic of the reference's
+    ``_flash_bwd_dq_kernel``: q, k, v and dO read as float32, p recomputed
+    from lse in float32 (not rounded: the forward rounds p before PV, the
+    backward does not) and 0 where the key is hidden, so a row that sees
+    no key gets dq = 0.  The scale multiplies the summed dot (the reference
+    multiplies each tile's dot: the same terms).
+
+    q, dout (B, T, H, d); k, v (B, S, KV, d), query head h reading KV head
+    h // (H / KV); lse, delta (B, H, T) float32.  → dq in q's dtype."""
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    scale = flash_scale(q.shape[-1])
+    mask = flash_mask(q_pos, k_pos, window, causal)
+    dq = torch.empty_like(q)
+    for hh in range(h):
+        kh, vh = k[:, :, hh // g], v[:, :, hh // g]
+        _, ds = _flash_p_ds(q[:, :, hh], kh, vh, dout[:, :, hh], lse[:, hh],
+                            delta[:, hh], mask, scale)
+        dq[:, :, hh] = (torch.einsum("bts,bsd->btd", ds, kh.float())
+                        * scale).to(q.dtype)
+    return dq
+
+
+def flash_bwd_dkv_ref(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                      k_pos: Tensor, dout: Tensor, lse: Tensor,
+                      delta: Tensor, window: int, causal: bool = True
+                      ) -> Tuple[Tensor, Tensor]:
+    """dv = Σ_i p_ij dO_i and dk = scale·Σ_i ds_ij q_i with the arithmetic
+    of the reference's ``_flash_bwd_dkv_kernel`` (p and ds as in
+    ``flash_bwd_dq_ref``).  KV head j's dk and dv sum its g query heads in
+    order h = j·g … j·g + g − 1, in float32, and round once to k's and
+    v's dtype (the reference expands k and v to the query heads and lets
+    autodiff sum the group).  Shapes as ``flash_bwd_dq_ref``; → dk, dv
+    (B, S, KV, d)."""
+    h, kvh = q.shape[2], k.shape[2]
+    g = h // kvh
+    scale = flash_scale(q.shape[-1])
+    mask = flash_mask(q_pos, k_pos, window, causal)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for j in range(kvh):
+        acc_k = acc_v = 0.0
+        for hh in range(j * g, (j + 1) * g):
+            qh, doh = q[:, :, hh], dout[:, :, hh]
+            p, ds = _flash_p_ds(qh, k[:, :, j], v[:, :, j], doh, lse[:, hh],
+                                delta[:, hh], mask, scale)
+            acc_v = acc_v + torch.einsum("bts,btd->bsd", p, doh.float())
+            acc_k = acc_k + torch.einsum("bts,btd->bsd", ds, qh.float())
+        dk[:, :, j] = (acc_k * scale).to(k.dtype)
+        dv[:, :, j] = acc_v.to(v.dtype)
+    return dk, dv
+
+
+def flash_bwd_ref(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
+                  k_pos: Tensor, out: Tensor, lse: Tensor, dout: Tensor,
+                  window: int, causal: bool = True
+                  ) -> Tuple[Tensor, Tensor, Tensor]:
+    """The gradient of ``flash_fwd_ref``'s out as the reference's backward
+    kernels define it — not autograd of ``flash_fwd_ref``, which differs
+    where the forward rounds p and where a row sees no key (there the
+    forward's out is the mean of v; the backward gives that row nothing).
+    out, lse: the forward's; dout (B, T, H, d).  → dq, dk, dv."""
+    delta = flash_delta(out, dout)
+    dq = flash_bwd_dq_ref(q, k, v, q_pos, k_pos, dout, lse, delta, window,
+                          causal)
+    dk, dv = flash_bwd_dkv_ref(q, k, v, q_pos, k_pos, dout, lse, delta,
+                               window, causal)
+    return dq, dk, dv

@@ -159,8 +159,9 @@ def attention_trainpath(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor,
     """Causal self-attention for the no-cache path, honouring ATTN_IMPL.
 
     With "flash" the kernel reads KV head h // (H / KV) in place (no
-    expanded copy of k and v); a CUDA tensor always launches it, a CPU
-    tensor takes its plain version.
+    expanded copy of k and v) and the result is differentiable through
+    the backward kernels (``FlashAttention``); a CUDA tensor always
+    launches them, a CPU tensor takes their plain versions.
     """
     if ATTN_IMPL != "flash":
         return attention(q, k, v, q_pos, k_pos, causal=True, window=window)

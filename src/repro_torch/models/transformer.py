@@ -15,8 +15,10 @@ Both cached paths use the plain chunked ``layers.attention``, as the
 reference's do.  Only the dense family is ported: moe, mla, hybrid, ssm,
 encdec and vlm raise ``NotImplementedError`` (ROADMAP.md queue 1,
 "The other LM families").
-Nothing here builds a graph for gradients: the callers run it under
-``torch.no_grad()`` (training and the backward kernels come later).
+Under ``torch.no_grad()`` (scoring, prefill, decode) nothing is kept for
+gradients.  With gradients on, each layer is recomputed in the backward
+(the reference's remat, ``nothing_saveable``), and "flash" differentiates
+through the CUDA backward kernels (``train.trainer._grads``).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.types import map_tree, resolve_device
 from repro_torch.models import layers
@@ -206,14 +209,26 @@ def _decoder_block(pblk, x, positions, cfg: ModelConfig, window,
 
 
 def _scan_blocks(params_blocks, x, positions, cfg: ModelConfig, windows,
-                 caches=None, cache_idx=None):
+                 caches=None, cache_idx=None, remat: bool = True):
     """The stacked decoder blocks, layer by layer (the reference's
-    ``lax.scan``; no remat: nothing is kept for gradients).  ``caches``
-    (stacked over L) are written in place."""
+    ``lax.scan``).  ``caches`` (stacked over L) are written in place.
+
+    Each layer takes its weights with one ``torch.unbind`` per stacked
+    leaf: under gradients its backward stacks the L layer gradients once,
+    where indexing ``t[i]`` would add L full-size (L, ...) buffers.  With
+    gradients on and no cache, each layer runs under
+    ``torch.utils.checkpoint`` when ``remat`` (the reference checkpoints
+    every layer with ``nothing_saveable``): only the layer inputs are
+    kept, and the backward runs each layer's forward again (the flash
+    kernels are deterministic, so the second run equals the first)."""
+    per_layer = map_tree(torch.unbind, params_blocks)
+    remat = remat and caches is None and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         kv_c = None if caches is None else map_tree(lambda t: t[i], caches)
-        x = _decoder_block(map_tree(lambda t: t[i], params_blocks), x,
-                           positions, cfg, int(windows[i]), kv_c, cache_idx)
+        args = (map_tree(lambda t: t[i], per_layer), x, positions, cfg,
+                int(windows[i]), kv_c, cache_idx)
+        x = checkpoint(_decoder_block, *args, use_reentrant=False) \
+            if remat else _decoder_block(*args)
     return x
 
 

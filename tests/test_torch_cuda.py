@@ -15,6 +15,9 @@ scatter_apply equals its plain version bit for bit and leaves the K − C
 other rows bit-equal.  flash_fwd: per row, ‖out − plain‖₂ within
 4·2⁻⁸·‖row‖ in bf16 (p and out rounded on each side) and 8·u·√S·‖row‖ in
 float32, lse within 2·(S + 4)·u + 4u·|lse| (chip_smoke.py's limits).
+flash_bwd_dq / flash_bwd_dkv: per row, chip_smoke.py's backward limit
+(``flash_bwd_excess``); two launches bit-equal; remat ≡ no remat bit for
+bit.
 """
 import dataclasses
 
@@ -410,3 +413,141 @@ def test_flash_refuses_float64_on_the_card(cuda):
     pos = torch.arange(4, dtype=torch.int32, device=cuda)[None]
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         flash_attention.flash_fwd(q, q, q, pos, pos, 0)
+
+
+# flash backward: (B, T, S, H, KV, d, causal, window); the first three keys
+# are hidden, so with T = S the first rows see no key
+FLASH_BWD_CASES = [
+    (2, 32, 32, 2, 2, 16, True, 0),
+    (1, 33, 65, 2, 1, 64, False, 0),
+    (1, 100, 300, 4, 2, 80, True, 37),
+    (1, 70, 70, 2, 2, 128, True, 0),
+    (1, 130, 129, 6, 2, 80, True, 0),
+]
+
+
+def flash_bwd_excess(got, want, q, k, g, dtype) -> float:
+    """The largest per-row ‖got − want‖ over chip_smoke.py's limit:
+    (e + r)·‖want_i‖ + e·max‖want‖, e = 8·u·(d + √d·L + √(g·S)) for the
+    float32 sums (L = scale·max‖q‖·max‖k‖ bounds a logit), r = 4·2⁻⁸ for
+    the one bf16 rounding on each side."""
+    d, s = q.shape[-1], k.shape[1]
+    lmax = float(q.float().norm(dim=-1).max() * k.float().norm(dim=-1).max()
+                 ) / d ** 0.5
+    e = 8 * EPS32 * (d + d ** 0.5 * lmax + (g * s) ** 0.5)
+    r = 4 * 2.0 ** -8 if dtype == torch.bfloat16 else 0.0
+    norm = want.float().norm(dim=-1)
+    limit = (e + r) * norm + e * norm.max()
+    return float(((got.float() - want.float()).norm(dim=-1) / limit).max())
+
+
+def _flash_bwd_inputs(cuda, case, dtype):
+    b, t, s, h, kv, d, causal, win = case
+    g = torch.Generator(device=cuda).manual_seed(d + t + s)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                     for shape in ((b, t, h, d), (b, s, kv, d), (b, s, kv, d),
+                                   (b, t, h, d)))
+    qp = torch.arange(s - t, s, dtype=torch.int32,
+                      device=cuda)[None].expand(b, t).contiguous()
+    kp = torch.arange(s, dtype=torch.int32,
+                      device=cuda)[None].expand(b, s).contiguous()
+    kp[:, :3] = -1
+    out, lse = ref.flash_fwd_ref(q, k, v, qp, kp, win, causal)
+    return q, k, v, qp, kp, out, lse, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, case, dtype):
+    b, t, s, h, kv, d, causal, win = case
+    q, k, v, qp, kp, out, lse, dout = _flash_bwd_inputs(cuda, case, dtype)
+    delta = ref.flash_delta(out, dout)
+    args = (q, k, v, qp, kp, dout, lse, delta, win, causal)
+    before = dict(_build.LAUNCHES)
+    dq = flash_attention.flash_bwd_dq(*args)
+    dk, dv = flash_attention.flash_bwd_dkv(*args)
+    assert _build.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
+    assert _build.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
+    want = (ref.flash_bwd_dq_ref(*args),) + ref.flash_bwd_dkv_ref(*args)
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype, name
+        assert flash_bwd_excess(got, w, q, k, h // kv, dtype) <= 1.0, name
+    if t == s:                       # rows that see no key get dq = 0
+        assert bool((dq[:, :3] == 0).all())
+    # deterministic: a second launch is bit-equal (no atomics)
+    assert torch.equal(dq, flash_attention.flash_bwd_dq(*args))
+    for a, b_ in zip((dk, dv), flash_attention.flash_bwd_dkv(*args)):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.cuda
+def test_flash_attention_output_carries_the_gradient(cuda):
+    """CUDA tensors that require grad: the kernel's output has a grad_fn,
+    and its backward launches one flash_bwd_dq and one flash_bwd_dkv and
+    gives the plain backward's gradients."""
+    case = FLASH_BWD_CASES[2]
+    b, t, s, h, kv, d, causal, win = case
+    q, k, v, qp, kp, out, lse, dout = _flash_bwd_inputs(cuda, case,
+                                                        torch.float32)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(_build.LAUNCHES)
+    got = flash_attention.flash_attention(*leaves, qp, kp, win,
+                                          causal=causal)
+    assert got.grad_fn is not None
+    got.backward(dout)
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        assert _build.LAUNCHES[name] == before[name] + 1, name
+    want = ref.flash_bwd_ref(q, k, v, qp, kp, out, lse, dout, win, causal)
+    for x, w in zip(leaves, want):
+        assert flash_bwd_excess(x.grad, w, q, k, h // kv,
+                                torch.float32) <= 1.0
+
+
+@pytest.mark.cuda
+def test_remat_equals_no_remat_on_the_card(cuda, monkeypatch):
+    """danube-smoke on the card with "flash": per-layer remat runs the
+    forward kernel twice a layer and changes no bit of the loss or the
+    gradient (the kernels are deterministic)."""
+    import functools
+
+    from repro_torch import configs
+    from repro_torch.train import trainer
+    cfg = configs.get_smoke("h2o-danube-1.8b")
+    params = transformer.init_params(cfg, seed=0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                         dtype=torch.int32)
+    batch = {"tokens": toks, "targets": torch.roll(toks, -1, 1)}
+    monkeypatch.setattr(layers, "ATTN_IMPL", "flash")
+    runs = []
+    for remat in (True, False):
+        with monkeypatch.context() as m:
+            m.setattr(transformer, "_scan_blocks", functools.partial(
+                transformer._scan_blocks, remat=remat))
+            _build.reset_launches()
+            loss, grads = trainer._grads(cfg, params, batch)
+            runs.append((loss, grads, dict(_build.LAUNCHES)))
+    (l1, g1, n1), (l0, g0, n0) = runs
+    layers_ = cfg.n_layers
+    assert n1["flash_fwd"] == 2 * layers_ and n0["flash_fwd"] == layers_
+    for n in (n1, n0):
+        assert n["flash_bwd_dq"] == n["flash_bwd_dkv"] == layers_
+    assert torch.equal(l1, l0)
+    for a, b_ in zip(_leaves(g1), _leaves(g0)):
+        assert torch.equal(a, b_)
+    assert all(bool(torch.isfinite(a).all()) for a in _leaves(g1))
+
+
+def _leaves(tree):
+    if torch.is_tensor(tree):
+        return [tree]
+    return [x for v in tree.values() for x in _leaves(v)]
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_a_head_dim_beyond_shared_memory(cuda):
+    q = torch.zeros((1, 4, 2, 256), device=cuda)
+    pos = torch.arange(4, dtype=torch.int32, device=cuda)[None]
+    lse = torch.zeros((1, 2, 4), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        flash_attention.flash_bwd_dkv(q, q, q, pos, pos, q, lse, lse, 0)

@@ -25,7 +25,7 @@ def test_import_pulls_in_no_jax():
             "repro_torch.kernels.flash_attention, repro_torch.configs, "
             "repro_torch.models.transformer, repro_torch.serve.engine, "
             "repro_torch.data.tokens, repro_torch.core.merge, "
-            "repro_torch.stream.lifecycle; "
+            "repro_torch.stream.lifecycle, repro_torch.train.trainer; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "assert not bad, bad")
